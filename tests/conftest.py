@@ -30,6 +30,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "multidevice: needs >= 4 in-process devices (deselect "
         "with -m 'not multidevice' for a fast tier-1 lane)")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card (PyTorch port kernels); skips "
+        "on a machine without one")
 
 
 def run_in_worker(code: str, devices: int = 8, timeout: int = 2400) -> str:
