@@ -21,10 +21,29 @@ prints no result line):
 5. control — a candidate whose ``layers.5.mlp.down.w`` is doubled must FAIL
              and be localized to ``layers.5.mlp``;
 6. timing  — the compare section's reduction: the kernel, its plain
-             version and a library yardstick, beside the bound.
+             version and a library yardstick, beside the bound;
+7. fp8_kernel  — ``fp8_matmul`` and ``fp8_matmul_tile128`` (one CUDA
+             source) on the card against their plain versions and a float64
+             product of the dequantized operands, at the main path's shapes
+             (8192 x 512 x 2048 and 8192 x 2048 x 512) and the reference
+             tests' shapes; bound on each element:
+             |kernel - f64| <= K * 2^-23 * (|xd| @ |wd|); two launches
+             bit-identical; shapes outside the reference's contract raise;
+8. fp8_main    — the FP8 recipe check of the same full-width model and
+             batch: ``make_fp8_runner`` candidates for ``tile128`` and
+             ``global`` must PASS under the fp8 epsilon, each launching its
+             kernel exactly 36 times (3 MLP matmuls x 12 layers) per
+             candidate run;
+9. fp8_control — ``fp8_stale_scale`` with tile128 must FAIL and be
+             localized to the registry's ``layers.*.mlp``;
+10. fp8_timing — each fp8 kernel per launch (CUDA events) at the main
+             path's two shapes, its plain version and ``torch._scaled_mm``
+             as the library yardstick, beside the bound.
 
-The line before the last is a ``{"kernels": [...]}`` JSON object; the last
-is ``{"ok": true, "device": {...}}``.
+Every kernel's launch count is set to 0 just before each path (phases 4
+and 8) and read just after it.  At the end come the card's name and power
+limit, then a ``{"kernels": [...]}`` JSON object, then the last line,
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -44,9 +63,33 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 F32_FLOPS = 67e12                  # H100 SXM float32 outside tensor cores
+FP8_FLOPS = 1979e12                # H100 SXM fp8 tensor cores, dense
 REL_TOL = 1e-5                     # on each sum, against float64
 KERNEL_SOURCE = "src/repro_torch/kernels/csrc/relerr.cu"
 KERNEL_REPLACES = "src/repro/kernels/relerr.py:101"
+FP8_SOURCE = "src/repro_torch/kernels/csrc/fp8_matmul.cu"
+FP8_REPLACES = {"fp8_matmul": "src/repro/kernels/fp8_matmul.py:56",
+                "fp8_matmul_tile128": "src/repro/kernels/fp8_matmul.py:109"}
+# the MLP matmuls of full-width gpt-paper at 8 x 1024 tokens, (M, K, N),
+# and how many of each one candidate forward launches
+FP8_MAIN_SHAPES = (((8192, 512, 2048), 24), ((8192, 2048, 512), 12))
+FP8_LAUNCHES_PER_RUN = 36
+
+
+def kernel_wrappers():
+    from repro_torch.kernels import ops
+    return {"packed_sq_norms": ops.packed_sq_norms,
+            "fp8_matmul": ops.fp8_matmul,
+            "fp8_matmul_tile128": ops.fp8_matmul_tile128}
+
+
+def reset_counts():
+    for fn in kernel_wrappers().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: fn.launches for name, fn in kernel_wrappers().items()}
 
 
 def log(*args):
@@ -190,9 +233,9 @@ def main_path(device, cfg, batch_size, seq, eps):
         marks.setdefault("after_estimate", packed_sq_norms.launches)
         return cand_run(batch, rewrites)
 
-    packed_sq_norms.launches = 0
+    reset_counts()
     res = ttrace_check(ref, cand, batch, eps=eps)
-    launches = packed_sq_norms.launches
+    launches = read_counts()["packed_sq_norms"]
     _, la, _, _ = collect_section_pairs(res.reference, res.candidate)
     stats = dict(
         launches=launches,
@@ -323,6 +366,247 @@ def time_reduction(res):
 
 
 # ---------------------------------------------------------------------------
+# phases 7-10: the FP8 recipes and their kernel
+# ---------------------------------------------------------------------------
+
+def fp8_operands(M, K, N, recipe, device, seed):
+    """Quantized operands of a seeded (M,K) @ (K,N) product and their
+    dequantized float64 values as the kernel sees them: for global the
+    kernel's product is unscaled, for tile128 it carries the tile scales."""
+    import torch
+    from repro_torch.precision.fp8 import expand_tile_scale, quantize_e4m3
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(M, K, generator=gen).to(device)
+    w = (torch.randn(K, N, generator=gen) * 0.05).to(device)
+    qx, sx = quantize_e4m3(x, recipe)
+    qw, sw = quantize_e4m3(w, recipe)
+    xd, wd = qx.double(), qw.double()
+    if recipe == "tile128":
+        xd = xd * expand_tile_scale(sx, qx.shape).double()
+        wd = wd * expand_tile_scale(sw, qw.shape).double()
+    return qx, sx, qw, sw, xd, wd
+
+
+def fp8_call(recipe, plain=False):
+    """(qx, sx, qw, sw) -> f32 product through the kernel or its plain
+    version."""
+    from repro_torch.kernels import fp8_matmul as K
+    if recipe == "tile128":
+        fn = K.fp8_matmul_tile128_ref if plain else K.fp8_matmul_tile128
+        return lambda qx, sx, qw, sw: fn(qx, sx, qw, sw)
+    fn = K.fp8_matmul_ref if plain else K.fp8_matmul
+    return lambda qx, sx, qw, sw: fn(qx, qw)
+
+
+def check_fp8_kernels(device):
+    """Both kernels against their plain versions and float64; returns the
+    largest |kernel - plain| per kernel."""
+    import torch
+    from repro_torch.kernels import fp8_matmul as K
+    shapes = {"global": [s for s, _ in FP8_MAIN_SHAPES]
+              + [(128, 128, 128), (64, 256, 192), (256, 64, 64), (8, 64, 64)],
+              "tile128": [s for s, _ in FP8_MAIN_SHAPES] + [(256, 384, 128)]}
+    max_err = {}
+    for recipe, name in (("global", "fp8_matmul"),
+                         ("tile128", "fp8_matmul_tile128")):
+        kern, plain = fp8_call(recipe), fp8_call(recipe, plain=True)
+        worst = 0.0
+        for i, (M, Kd, N) in enumerate(shapes[recipe]):
+            qx, sx, qw, sw, xd, wd = fp8_operands(M, Kd, N, recipe, device, i)
+            k1 = kern(qx, sx, qw, sw)
+            k2 = kern(qx, sx, qw, sw)
+            p = plain(qx, sx, qw, sw)
+            torch.cuda.synchronize(device)
+            if not torch.equal(k1, k2):
+                raise AssertionError(f"{name} {M}x{Kd}x{N}: two launches differ")
+            ref = xd @ wd
+            bound = Kd * 2.0 ** -23 * (xd.abs() @ wd.abs())
+            for what, got in (("kernel", k1), ("plain", p)):
+                over = (got.double() - ref).abs() - bound
+                if bool((over > 0).any()):
+                    i0 = int(over.argmax())
+                    raise AssertionError(
+                        f"{name} {what} {M}x{Kd}x{N}: element {i0} is "
+                        f"{float(got.reshape(-1)[i0])} vs float64 "
+                        f"{float(ref.reshape(-1)[i0])}, over the bound by "
+                        f"{float(over.max())}")
+            err = float((k1 - p).abs().max())
+            worst = max(worst, err)
+            log(f"{name} {M}x{Kd}x{N}: ok, max |kernel - plain| {err:.3g}, "
+                f"max |kernel - f64| {float((k1.double() - ref).abs().max()):.3g}")
+        max_err[name] = worst
+
+    # shapes and layouts outside the reference's contract raise
+    qx, sx, qw, sw, _, _ = fp8_operands(384, 256, 128, "tile128", device, 9)
+    refused = [
+        lambda: K.fp8_matmul(qx[:300], qw),                  # 300 % 256
+        lambda: K.fp8_matmul(qx.float(), qw),                # not e4m3
+        lambda: K.fp8_matmul(qx[:256, ::2], qw[::2]),        # not contiguous
+        lambda: K.fp8_matmul_tile128(qx[:100], sx[:1], qw, sw),
+        lambda: K.fp8_matmul_tile128(qx, sx[:2], qw, sw),    # sx shape
+    ]
+    for i, call in enumerate(refused):
+        try:
+            call()
+        except (ValueError, TypeError) as e:
+            log(f"refused as it should be: {e}")
+        else:
+            raise AssertionError(f"out-of-contract call {i} was accepted")
+    return max_err
+
+
+def fp8_check(model, batch, recipe, bugs=frozenset()):
+    """One ``ttrace_check`` of an fp8 candidate with every launch count set
+    to 0 just before and read just after; also the kernel launches of
+    each candidate run."""
+    from repro_torch.core.harness import make_model_runner, ttrace_check
+    from repro_torch.core.thresholds import MACHINE_EPS
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.precision.fp8 import make_fp8_runner
+
+    opt = AdamW(lr=1e-3)
+    cand = make_fp8_runner(model, recipe, opt=opt, bugs=bugs)
+    per_run = []
+
+    def counted(b, rewrites=None):
+        before = read_counts()
+        tr = cand(b, rewrites)
+        after = read_counts()
+        per_run.append({k: after[k] - before[k] for k in after})
+        return tr
+
+    reset_counts()
+    res = ttrace_check(make_model_runner(model, opt), counted, batch,
+                       eps=MACHINE_EPS["float8_e4m3fn"])
+    return res, read_counts(), per_run
+
+
+def fp8_main(model, batch, cfg, B, S):
+    out = {}
+    for recipe, name in (("tile128", "fp8_matmul_tile128"),
+                         ("global", "fp8_matmul")):
+        res, counts, per_run = fp8_check(model, batch, recipe)
+        log(f"--- fp8-{recipe} ---")
+        log(res.summary())
+        worst = max(res.report.records, key=lambda r: r.rel_err / r.threshold)
+        log(f"fp8-{recipe}: launches {counts}, per candidate run "
+            f"{per_run}; step seconds {json.dumps(res.seconds)}; largest "
+            f"rel-err / threshold {worst.rel_err / worst.threshold:.4f} "
+            f"({worst.kind} {worst.name})")
+        if not res.passed:
+            raise AssertionError(f"clean fp8-{recipe} check did not PASS")
+        other = "fp8_matmul" if recipe == "tile128" else "fp8_matmul_tile128"
+        if [r[name] for r in per_run] != [FP8_LAUNCHES_PER_RUN] or any(
+                r[other] for r in per_run):
+            raise AssertionError(f"fp8-{recipe}: candidate runs launched "
+                                 f"{per_run}, expected {FP8_LAUNCHES_PER_RUN} "
+                                 f"{name} launches each")
+        check_trace_shapes(res, cfg, B, S)
+        out[name] = dict(launches=counts[name], seconds=res.seconds,
+                         worst=(worst.kind, worst.name,
+                                worst.rel_err / worst.threshold))
+    return out
+
+
+def fp8_control(model, batch):
+    import fnmatch
+    from repro_torch.bugs.registry import bug
+    spec = bug("fp8_stale_scale")
+    res, counts, _ = fp8_check(model, batch, "tile128",
+                               bugs=frozenset({spec.bug_id}))
+    log(res.summary())
+    log(f"control step seconds: {json.dumps(res.seconds)}; launches {counts}")
+    loc = res.localized_module
+    if res.passed or not fnmatch.fnmatch(loc or "", spec.expected_module):
+        raise AssertionError(f"fp8_stale_scale: passed={res.passed}, "
+                             f"localized {loc!r}, expected "
+                             f"{spec.expected_module!r}")
+    return loc
+
+
+def scaled_mm_call(qx, sx, qw, sw, recipe):
+    """The library yardstick: one ``torch._scaled_mm`` computing the same
+    function, or None where the installed torch takes no such call.  Timed
+    here only; the port never calls it."""
+    import torch
+    wcm = qw.t().contiguous().t()                 # cuBLAS wants w column-major
+    if recipe == "global":
+        one = torch.ones((), dtype=torch.float32, device=qx.device)
+        return lambda: torch._scaled_mm(qx, wcm, one, one,
+                                        out_dtype=torch.float32)
+    # 128x128 tiles of x as 1x128 blocks (each row of a tile shares its
+    # scale) and sw as 128x128 blocks, both outer-dim-major
+    sa = sx.repeat_interleave(128, 0).t().contiguous().t()
+    sb = sw.t().contiguous().t()
+
+    def call():
+        return torch._scaled_mm(qx, wcm, sa, sb, out_dtype=torch.float32)
+    try:
+        call()
+    except (RuntimeError, ValueError) as e:
+        log(f"_scaled_mm with block scales refused: "
+            f"{str(e).splitlines()[0][:200]}")
+        return None
+    return call
+
+
+def fp8_timing(device):
+    """Per kernel: ms per launch, plain ms, library ms and the bound, each
+    the main path's launch-weighted mean over its two shapes."""
+    rows = {}
+    total = sum(n for _, n in FP8_MAIN_SHAPES)
+    for recipe, name in (("global", "fp8_matmul"),
+                         ("tile128", "fp8_matmul_tile128")):
+        kern, plain = fp8_call(recipe), fp8_call(recipe, plain=True)
+        acc = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+                   bytes_ms=0.0, ops_ms=0.0)
+        library_ok = True
+        shapes = []
+        for (M, K, N), n in FP8_MAIN_SHAPES:
+            qx, sx, qw, sw, xd, wd = fp8_operands(M, K, N, recipe, device, 0)
+            args = (qx, sx, qw, sw)
+            ms = cuda_time_ms(lambda: kern(*args))
+            plain_ms = cuda_time_ms(lambda: plain(*args), reps=10)
+            lib = scaled_mm_call(qx, sx, qw, sw, recipe)
+            lib_ms = lib_err = None
+            if lib is not None:
+                got = lib().double()
+                ref = xd @ wd
+                lib_err = float((got - ref).abs().max() / ref.abs().max())
+                if lib_err > 1e-2:
+                    log(f"_scaled_mm {recipe} {M}x{K}x{N} disagrees "
+                        f"(relative {lib_err:.3g}); no yardstick")
+                    lib = None
+                else:
+                    lib_ms = cuda_time_ms(lib)
+            library_ok = library_ok and lib is not None
+            nbytes = M * K + K * N + 4 * M * N
+            if recipe == "tile128":
+                nbytes += 4 * (sx.numel() + sw.numel())
+            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            ops_ms = 2 * M * K * N / FP8_FLOPS * 1e3
+            shapes.append(dict(shape=(M, K, N), launches_per_run=n, ms=ms,
+                               plain_ms=plain_ms, library_ms=lib_ms,
+                               library_rel_err=lib_err,
+                               bound_ms=max(bytes_ms, ops_ms),
+                               bound_by="bytes" if bytes_ms >= ops_ms
+                               else "operations"))
+            for k, v in (("ms", ms), ("plain_ms", plain_ms),
+                         ("library_ms", lib_ms or 0.0),
+                         ("bound_ms", max(bytes_ms, ops_ms)),
+                         ("bytes_ms", bytes_ms), ("ops_ms", ops_ms)):
+                acc[k] += v * n / total
+            log(f"{name} {M}x{K}x{N}: " + json.dumps(shapes[-1]))
+        rows[name] = dict(
+            ms=acc["ms"], plain_ms=acc["plain_ms"],
+            library_ms=acc["library_ms"] if library_ok else None,
+            bound_ms=acc["bound_ms"],
+            bound_by="bytes" if acc["bytes_ms"] >= acc["ops_ms"]
+            else "operations", shapes=shapes)
+    return rows
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     import torch
@@ -332,7 +616,6 @@ def main() -> int:
     from repro_torch.configs.base import get_config
     from repro_torch.core.thresholds import MACHINE_EPS
     from repro_torch.kernels import build
-    from repro_torch.kernels.relerr import packed_sq_norms
 
     failures = []
     ok = {}
@@ -429,18 +712,39 @@ def main() -> int:
                 f"ms ({timing['bound_by']}); pack_device {timing['pack_ms']:.4f} "
                 f"ms; kernel vs plain: max abs {timing['max_abs_err']:.3g}, "
                 f"max rel {timing['max_rel_err']:.3g}")
+    fp8_err = phase("fp8_kernel", lambda: check_fp8_kernels(dev))
+    fp8 = fp8_timed = None
+    if main is not None:
+        fp8 = phase("fp8_main", lambda: fp8_main(model, batch, cfg, B, S))
+        phase("fp8_control", lambda: fp8_control(model, batch))
+    if fp8_err is not None:
+        fp8_timed = phase("fp8_timing", lambda: fp8_timing(dev))
+        if fp8_timed is not None:
+            for name, row in fp8_timed.items():
+                log(f"{name} on {card}, per launch over the main path's mix: "
+                    f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} "
+                    f"ms, library (_scaled_mm) {row['library_ms']} ms, bound "
+                    f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
     if failures:
         log(f"FAILED phases: {failures}")
         return 1
-    line = {"kernels": [{
+    kernels = [{
         "name": "packed_sq_norms", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES, "launches": stats["launches"],
         "max_abs_err": max(kernel_err, timing["max_abs_err"]),
         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
-        "library_ms": timing["library_ms"]}]}
-    log(json.dumps(line))
+        "library_ms": timing["library_ms"]}]
+    for name in ("fp8_matmul", "fp8_matmul_tile128"):
+        row = fp8_timed[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": FP8_SOURCE,
+            "replaces": FP8_REPLACES[name], "launches": fp8[name]["launches"],
+            "max_abs_err": fp8_err[name], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
     log(card_line())
+    log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -63,6 +63,24 @@ def _on_device(v, device: torch.device) -> torch.Tensor:
             ).to(device)
 
 
+def runner_device(model, device) -> torch.device:
+    """The device a runner over ``model`` runs on; the model must live there."""
+    dev = resolve_device(device)
+    if model.device != dev:
+        raise ValueError(f"model lives on {model.device}, runner on {dev}")
+    return dev
+
+
+def inputs_on(dev: torch.device, batch: dict, rewrites=None):
+    """A runner's batch leaves and rewrites (numpy or tensors) on ``dev``;
+    callable rewrites pass through."""
+    b = {k: _on_device(v, dev) for k, v in batch.items()}
+    rw = (None if rewrites is None else
+          {k: v if callable(v) else _on_device(v, dev)
+           for k, v in rewrites.items()})
+    return b, rw
+
+
 def make_model_runner(model, opt=None, opt_state=None,
                       device="cuda") -> Callable:
     """Reference runner over a port ``Model`` living on ``device``.
@@ -70,15 +88,10 @@ def make_model_runner(model, opt=None, opt_state=None,
     Batch leaves and rewrites (numpy or tensors) are moved to ``device``;
     the model's parameters are never changed by a run.
     """
-    dev = resolve_device(device)
-    if model.device != dev:
-        raise ValueError(f"model lives on {model.device}, runner on {dev}")
+    dev = runner_device(model, device)
 
     def run(batch, rewrites=None) -> Trace:
-        b = {k: _on_device(v, dev) for k, v in batch.items()}
-        rw = (None if rewrites is None else
-              {k: v if callable(v) else _on_device(v, dev)
-               for k, v in rewrites.items()})
+        b, rw = inputs_on(dev, batch, rewrites)
         tr, _, _ = trace_train_step(model, b, opt=opt, opt_state=opt_state,
                                     rewrites=rw)
         return tr

@@ -40,6 +40,20 @@ class Linear(nn.Module):
         return linear(self.w, x)
 
 
+def _mlp_linear(precision):
+    """The matmul the MLPs use, ``lin(Linear, x)``: plain, or FP8-quantized
+    per the recipe of ``precision`` (a ``precision.fp8.Precision``)."""
+    if precision is None or not precision.fp8_recipe:
+        return lambda m, x: linear(m.w, x)
+    from repro_torch.precision.fp8 import fp8_linear
+
+    def lin(m, x):
+        return fp8_linear(m.w, x, recipe=precision.fp8_recipe,
+                          stale_scale=precision.stale_scale)
+
+    return lin
+
+
 class SwiGLUMLP(nn.Module):
     """``swiglu_mlp_init`` / ``swiglu_mlp``, tapping ``input`` and ``output``."""
 
@@ -49,11 +63,12 @@ class SwiGLUMLP(nn.Module):
         self.up = Linear(gen, d_model, d_ff, dtype)
         self.down = Linear(gen, d_ff, d_model, dtype, scale=out_scale)
 
-    def forward(self, x, ctx=None):
+    def forward(self, x, ctx=None, precision=None):
         ctx = ensure_ctx(ctx)
+        lin = _mlp_linear(precision)
         x = ctx.tap("input", x)
-        h = F.silu(self.gate(x)) * self.up(x)
-        return ctx.tap("output", self.down(h))
+        h = F.silu(lin(self.gate, x)) * lin(self.up, x)
+        return ctx.tap("output", lin(self.down, h))
 
 
 def rope_freqs(d: int, theta: float) -> np.ndarray:

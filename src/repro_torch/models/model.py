@@ -57,13 +57,13 @@ class Block(nn.Module):
         self.self_attention = GQAttention(gen, cfg, dtype, osc)
         self.mlp = SwiGLUMLP(gen, cfg.d_model, cfg.d_ff, dtype, osc)
 
-    def forward(self, x, ctx):
+    def forward(self, x, ctx, precision=None):
         h = rmsnorm(self.input_norm, x)
         with ctx.scope("self_attention"):
             x = x + self.self_attention(h, ctx=ctx)
         h = rmsnorm(self.post_attn_norm, x)
         with ctx.scope("mlp"):
-            x = x + self.mlp(h, ctx=ctx)
+            x = x + self.mlp(h, ctx=ctx, precision=precision)
         return x
 
 
@@ -108,22 +108,25 @@ class Model(nn.Module):
             h = ctx.tap("output", h.to(self.cdtype))
         return h
 
-    def apply_blocks(self, h, ctx=None):
+    def apply_blocks(self, h, ctx=None, precision=None):
         ctx = ensure_ctx(ctx)
         for seg in self.plan:
             for j in range(seg.n):
                 li = seg.layer0 + j
                 with ctx.scope(f"layers.{li}"):
-                    h = self.layers[li](h, ctx)
+                    h = self.layers[li](h, ctx, precision)
         h = rmsnorm(self.final_norm, h)
         return ctx.tap("final_norm_out", h)
 
-    def forward(self, batch, ctx=None):
-        return self.apply_blocks(self.embed(batch, ctx), ctx)
+    def forward(self, batch, ctx=None, precision=None):
+        """``precision`` (an optional ``precision.fp8.Precision``) routes the
+        MLP matmuls through its FP8 recipe; everything else stays in the
+        compute dtype."""
+        return self.apply_blocks(self.embed(batch, ctx), ctx, precision)
 
-    def loss(self, batch, ctx=None):
+    def loss(self, batch, ctx=None, precision=None):
         cfg = self.cfg
-        h = self.forward(batch, ctx)
+        h = self.forward(batch, ctx, precision)
         e = (self.embedding.word_embeddings if cfg.tie_embeddings
              else self.lm_head)
         if h.shape[1] * cfg.vocab > _CHUNKED_CE_ELEMS:

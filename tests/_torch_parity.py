@@ -32,13 +32,13 @@ def configs(name):
 
 
 @functools.lru_cache(maxsize=None)
-def jax_setup(name, seed=1):
+def jax_setup(name, seed=1, seq=SEQ):
     """(jax cfg, jax model, jax params, numpy named params, numpy batch)."""
     jcfg, _ = configs(name)
     jm = JaxModel(jcfg)
     params = jax.jit(jm.init)(jax.random.PRNGKey(seed))
     named = {k: np.asarray(v) for k, v in flatten_named(params).items()}
-    batch = {k: np.asarray(v) for k, v in jax_make_batch(jcfg, BATCH, SEQ).items()}
+    batch = {k: np.asarray(v) for k, v in jax_make_batch(jcfg, BATCH, seq).items()}
     return jcfg, jm, params, named, batch
 
 

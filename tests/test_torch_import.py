@@ -31,7 +31,9 @@ def _modules():
 
 def test_importing_every_module_loads_no_jax_and_no_repro():
     mods = _modules()
-    assert "repro_torch.core.harness" in mods and len(mods) >= 15
+    assert "repro_torch.core.harness" in mods and len(mods) >= 32
+    assert {"repro_torch.precision.fp8", "repro_torch.kernels.fp8_matmul",
+            "repro_torch.bugs.registry"} <= set(mods)
     code = ("import sys\n"
             + "".join(f"import {m}\n" for m in mods)
             + "bad = sorted(m for m in sys.modules if m == 'jax' or "
