@@ -38,10 +38,33 @@ prints no result line):
              localized to the registry's ``layers.*.mlp``;
 10. fp8_timing — each fp8 kernel per launch (CUDA events) at the main
              path's two shapes, its plain version and ``torch._scaled_mm``
-             as the library yardstick, beside the bound.
+             as the library yardstick, beside the bound;
+11. flash_kernel — ``flash_attention`` on the card against its plain
+             version and a float64 ``attention_ref``: bf16 causal at the
+             main path's shape (8 x 1024, 8 heads of 64), the long path's
+             (2 x 4096), a GQA shape at tinyllama-1.1b's heads (2 x 2048, 32
+             heads, 4 kv) and a D 128 one at qwen3-32b's (1 x 1024, 64
+             heads, 8 kv), then the reference tests' sweep in f32 in every
+             mode; f32 within 2e-5 of float64, bf16 within half a bf16 ulp
+             (plus 2e-5); two launches bit-identical; out-of-contract
+             shapes and operands raise;
+12. flash_main — the flash-attention candidate (``trace_fn_step`` over
+             ``loss(use_kernel=True)``) of the same model and batch must
+             PASS under bf16 thresholds, launching the kernel 12 times (one
+             per layer) per candidate run;
+13. flash_long — the same check at B 2 x S 4096: the reference takes
+             ``attention_blockwise`` and the chunked CE, the candidate the
+             kernel and the chunked CE (counted); must PASS, 12 launches;
+14. flash_control — the flash candidate with
+             ``layers.3.self_attention.linear_qkv.w`` doubled must FAIL and
+             be localized to ``layers.3.self_attention`` (24 launches);
+15. flash_timing — the kernel per launch (CUDA events) at the main and
+             long shapes, its plain version and
+             ``scaled_dot_product_attention`` as the library yardstick,
+             beside the bound.
 
-Every kernel's launch count is set to 0 just before each path (phases 4
-and 8) and read just after it.  At the end come the card's name and power
+Every kernel's launch count is set to 0 just before each path (phases 4,
+8, 12, 13 and 14) and read just after it.  At the end come the card's name and power
 limit, then a ``{"kernels": [...]}`` JSON object, then the last line,
 ``{"ok": true, "device": {...}}``.
 """
@@ -74,13 +97,29 @@ FP8_REPLACES = {"fp8_matmul": "src/repro/kernels/fp8_matmul.py:56",
 # and how many of each one candidate forward launches
 FP8_MAIN_SHAPES = (((8192, 512, 2048), 24), ((8192, 2048, 512), 12))
 FP8_LAUNCHES_PER_RUN = 36
+BF16_FLOPS = 989e12                # H100 SXM bf16 tensor cores, dense
+FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
+FLASH_REPLACES = "src/repro/kernels/flash_attention.py:110"
+FLASH_LAUNCHES_PER_RUN = 12        # one per layer of full-width gpt-paper
+FLASH_F32_TOL = 2e-5               # absolute, against float64 (test_kernels)
+# (B, S, H, Hkv, D): the main path's attention, the long path's, a GQA
+# shape at tinyllama-1.1b's heads and a D 128 GQA one at qwen3-32b's
+FLASH_MAIN = (8, 1024, 8, 8, 64)
+FLASH_LONG = (2, 4096, 8, 8, 64)
+FLASH_BF16_SHAPES = (FLASH_MAIN, FLASH_LONG, (2, 2048, 32, 4, 64),
+                     (1, 1024, 64, 8, 128))
+# the reference tests' sweep (tests/test_kernels.py), f32, every mode
+FLASH_F32_SHAPES = ((1, 128, 2, 2, 64), (2, 256, 4, 2, 64),
+                    (1, 256, 8, 2, 128), (1, 128, 4, 1, 64))
+FLASH_MODES = (("causal", 0), ("swa", 64), ("bidirectional", 0))
 
 
 def kernel_wrappers():
     from repro_torch.kernels import ops
     return {"packed_sq_norms": ops.packed_sq_norms,
             "fp8_matmul": ops.fp8_matmul,
-            "fp8_matmul_tile128": ops.fp8_matmul_tile128}
+            "fp8_matmul_tile128": ops.fp8_matmul_tile128,
+            "flash_attention": ops.flash_attention}
 
 
 def reset_counts():
@@ -607,6 +646,286 @@ def fp8_timing(device):
 
 
 # ---------------------------------------------------------------------------
+# phases 11-15: the flash-attention candidate and its kernel
+# ---------------------------------------------------------------------------
+
+def flash_inputs(B, S, H, Hkv, D, dtype, device, seed):
+    import torch
+    gen = torch.Generator().manual_seed(seed)
+    return [torch.randn(shape, generator=gen).to(device=device, dtype=dtype)
+            for shape in ((B, S, H, D), (B, S, Hkv, D), (B, S, Hkv, D))]
+
+
+def check_flash_kernel(device):
+    """The kernel against its plain version and a float64 ``attention_ref``
+    on the same inputs.  f32: within FLASH_F32_TOL of float64 (f32
+    summation order, as ``test_kernels.py``).  bf16: within half a bf16 ulp
+    of the float64 value (the output's one rounding, 2^-8 relative) plus
+    FLASH_F32_TOL for the f32 sums before it.  Two launches must give
+    identical bits.  Returns the largest |kernel - plain|."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention_ref
+    from repro_torch.models.attention import attention_ref
+
+    cases = [(shape, torch.bfloat16, "causal", 0)
+             for shape in FLASH_BF16_SHAPES]
+    cases += [(shape, torch.float32, mode, window)
+              for shape in FLASH_F32_SHAPES for mode, window in FLASH_MODES]
+    worst = 0.0
+    for i, (shape, dtype, mode, window) in enumerate(cases):
+        q, k, v = flash_inputs(*shape, dtype, device, seed=100 + i)
+        k1 = ops.flash_attention(q, k, v, mode=mode, window=window)
+        k2 = ops.flash_attention(q, k, v, mode=mode, window=window)
+        p = flash_attention_ref(q, k, v, mode=mode, window=window)
+        ref = attention_ref(q.double(), k.double(), v.double(), mode=mode,
+                            window=window)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        what = f"flash {tuple(shape)} {str(dtype)[6:]} {mode}"
+        if k1.dtype != dtype or tuple(k1.shape) != tuple(q.shape):
+            raise AssertionError(f"{what}: got {k1.dtype} {tuple(k1.shape)}")
+        if not torch.equal(k1, k2):
+            raise AssertionError(f"{what}: two launches differ")
+        rel = 2.0 ** -8 if dtype == torch.bfloat16 else 0.0
+        for name, got in (("kernel", k1), ("plain", p)):
+            over = (got.double() - ref).abs() - (rel * ref.abs()
+                                                 + FLASH_F32_TOL)
+            if bool((over > 0).any()) or not bool(got.isfinite().all()):
+                j = int(over.reshape(-1).argmax())
+                raise AssertionError(
+                    f"{what} {name}: element {j} is "
+                    f"{float(got.reshape(-1)[j])} vs float64 "
+                    f"{float(ref.reshape(-1)[j])}, over the bound by "
+                    f"{float(over.max())}")
+        err = float((k1.double() - p.double()).abs().max())
+        worst = max(worst, err)
+        log(f"{what}: ok, max |kernel - plain| {err:.3g}, max |kernel - f64| "
+            f"{float((k1.double() - ref).abs().max()):.3g}")
+        del q, k, v, k1, k2, p, ref
+
+    # shapes and operands outside the contract raise
+    bf = torch.bfloat16
+    q, k, v = flash_inputs(1, 768, 2, 2, 64, bf, device, 9)
+    gqa = flash_inputs(1, 64, 6, 4, 64, bf, device, 9)
+    d96 = flash_inputs(1, 64, 2, 2, 96, bf, device, 9)
+    wide = torch.zeros((1, 64, 2, 64, 2), dtype=bf, device=device)[..., 0]
+    s = slice(0, 64)
+    refused = [
+        lambda: ops.flash_attention(q, k, v),                 # 768 % 512
+        lambda: ops.flash_attention(*gqa),                    # 6 % 4
+        lambda: ops.flash_attention(*d96),                    # D 96
+        lambda: ops.flash_attention(wide, k[:, s], v[:, s]),  # D stride 2
+        lambda: ops.flash_attention(q[:, s], k[:, s].cpu(), v[:, s]),
+        lambda: ops.flash_attention(q[:, s], k[:, s].float(), v[:, s]),
+    ]
+    for i, call in enumerate(refused):
+        try:
+            call()
+        except (ValueError, TypeError) as e:
+            log(f"refused as it should be: {e}")
+        else:
+            raise AssertionError(f"out-of-contract flash call {i} was "
+                                 f"accepted")
+    return worst
+
+
+def flash_runner(model, opt):
+    """The flash-attention candidate as a user builds it: the generic
+    collector over ``loss(use_kernel=True)``, as ``make_fp8_runner``."""
+    from repro_torch.core.collector import named_params, trace_fn_step
+    from repro_torch.core.harness import inputs_on
+    params = named_params(model)
+
+    def loss_call(batch, ctx):
+        return model.loss(batch, ctx=ctx, use_kernel=True)[0]
+
+    def run(batch, rewrites=None):
+        b, rw = inputs_on(model.device, batch, rewrites)
+        tr, _, _ = trace_fn_step(loss_call, params, b, opt=opt, rewrites=rw)
+        return tr
+
+    return run
+
+
+def counted_runner(run, per_run, extra=None):
+    """``run`` recording each call's launches (and ``extra`` counters)."""
+    def wrapped(batch, rewrites=None):
+        before = dict(read_counts(), **(extra or {}))
+        tr = run(batch, rewrites)
+        after = dict(read_counts(), **(extra or {}))
+        per_run.append({k: after[k] - before[k] for k in after})
+        return tr
+    return wrapped
+
+
+def flash_check(model, batch, cand_model=None, extra=None):
+    """One ``ttrace_check`` of the flash candidate over ``cand_model``
+    (default ``model``) against the plain ``model``, with every launch
+    count set to 0 just before and read just after.  Returns (result,
+    counts, per reference run, per candidate run)."""
+    from repro_torch.core.harness import make_model_runner, ttrace_check
+    from repro_torch.core.thresholds import MACHINE_EPS
+    from repro_torch.optim.adamw import AdamW
+
+    opt = AdamW(lr=1e-3)
+    ref_runs, cand_runs = [], []
+    ref = counted_runner(make_model_runner(model, opt, device=model.device),
+                         ref_runs, extra)
+    cand = counted_runner(flash_runner(cand_model or model, opt), cand_runs,
+                          extra)
+    reset_counts()
+    res = ttrace_check(ref, cand, batch, eps=MACHINE_EPS["bfloat16"])
+    return res, read_counts(), ref_runs, cand_runs
+
+
+def worst_record(res):
+    w = max(res.report.records, key=lambda r: r.rel_err / r.threshold)
+    return w.rel_err / w.threshold, f"{w.kind} {w.name}"
+
+
+def flash_verdict(name, res, counts, ref_runs, cand_runs, cfg, B, S):
+    ratio, where = worst_record(res)
+    log(res.summary())
+    log(f"{name}: launches {counts}; per reference run {ref_runs}; per "
+        f"candidate run {cand_runs}; step seconds {json.dumps(res.seconds)}; "
+        f"largest rel-err / threshold {ratio:.4f} ({where})")
+    if not res.passed:
+        raise AssertionError(f"clean {name} check did not PASS")
+    if [r["flash_attention"] for r in cand_runs] != [FLASH_LAUNCHES_PER_RUN]:
+        raise AssertionError(f"{name}: candidate runs launched {cand_runs}, "
+                             f"expected {FLASH_LAUNCHES_PER_RUN} "
+                             f"flash_attention launches")
+    if any(r["flash_attention"] for r in ref_runs):
+        raise AssertionError(f"{name}: the reference launched the kernel")
+    check_trace_shapes(res, cfg, B, S)
+    return dict(launches=counts["flash_attention"], seconds=res.seconds,
+                worst=(where, ratio))
+
+
+def flash_long(model, cfg, B, S):
+    """The flash check at S 4096: the reference must take
+    ``attention_blockwise`` and the chunked CE, the candidate the kernel and
+    the chunked CE.  Both are counted by wrapping the two functions where
+    the model calls them, for this phase only."""
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.models import attention as A
+    from repro_torch.models import model as M
+
+    if not (S * cfg.vocab > M._CHUNKED_CE_ELEMS and S % 1024 == 0):
+        raise AssertionError(f"S {S} x vocab {cfg.vocab} does not take the "
+                             f"chunked CE in 1024-wide chunks")
+    calls = {"attention_blockwise": 0, "chunked_cross_entropy": 0}
+    saved = [(mod, name, getattr(mod, name)) for mod, name in
+             ((A, "attention_blockwise"), (M, "chunked_cross_entropy"))]
+
+    def counting(name, fn):
+        def wrapped(*args, **kwargs):
+            calls[name] += 1
+            return fn(*args, **kwargs)
+        return wrapped
+    for mod, name, fn in saved:
+        setattr(mod, name, counting(name, fn))
+    try:
+        batch = make_batch(cfg, B, S, seed=0, device=model.device)
+        res, counts, ref_runs, cand_runs = flash_check(model, batch,
+                                                       extra=calls)
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    L = cfg.n_layers
+    # the candidate's forward runs on the kernel; its backward recomputes
+    # the reference's attention, which is blockwise at this length
+    for kind, runs in (("reference", ref_runs), ("candidate", cand_runs)):
+        for r in runs:
+            if (r["attention_blockwise"] != L
+                    or r["chunked_cross_entropy"] != 1):
+                raise AssertionError(f"a {kind} run called {r}: expected {L}"
+                                     f" attention_blockwise, 1 chunked CE")
+    return flash_verdict("flash_long", res, counts, ref_runs, cand_runs, cfg,
+                         B, S)
+
+
+def flash_control(cfg, model, batch):
+    import torch
+    from repro_torch.models.model import Model
+    bad = Model(cfg, seed=0, device=model.device)
+    with torch.no_grad():
+        bad.layers[3].self_attention.linear_qkv.w.mul_(2.0)
+    res, counts, _, cand_runs = flash_check(model, batch, cand_model=bad)
+    log(res.summary())
+    log(f"flash control step seconds: {json.dumps(res.seconds)}; launches "
+        f"{counts}; per candidate run {cand_runs}")
+    loc = res.localized_module
+    if res.passed or loc != "layers.3.self_attention":
+        raise AssertionError(f"doubled layers.3.self_attention.linear_qkv.w: "
+                             f"passed={res.passed}, localized {loc!r}")
+    if counts["flash_attention"] != 2 * FLASH_LAUNCHES_PER_RUN:
+        raise AssertionError(f"flash control launched "
+                             f"{counts['flash_attention']}, expected "
+                             f"{2 * FLASH_LAUNCHES_PER_RUN}")
+    return loc
+
+
+def flash_bound(B, S, H, Hkv, D, elem_bytes=2):
+    """(bound ms, bound_by, bytes, flops) of causal attention: q, k, v and
+    out read or written once; 4 D flops per unmasked (q, k) pair on the
+    bf16 tensor cores."""
+    nbytes = elem_bytes * B * S * D * (2 * H + 2 * Hkv)
+    flops = 4 * D * B * H * S * (S + 1) // 2
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / BF16_FLOPS * 1e3
+    return (max(bytes_ms, ops_ms),
+            "bytes" if bytes_ms >= ops_ms else "operations", nbytes, flops)
+
+
+def flash_timing(device):
+    """Per launch (CUDA events), bf16 causal: the kernel, its plain
+    version and ``scaled_dot_product_attention`` on (B,H,S,D) views as the
+    library yardstick (timed here only; the port never calls it)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention_ref
+
+    launches = ops.flash_attention.launches
+    rows = []
+    for shape in (FLASH_MAIN, FLASH_LONG):
+        q, k, v = flash_inputs(*shape, torch.bfloat16, device, seed=0)
+        ms = cuda_time_ms(lambda: ops.flash_attention(q, k, v))
+        plain_ms = cuda_time_ms(lambda: flash_attention_ref(q, k, v), reps=5,
+                                warmup=1)
+
+        def library():
+            return F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                is_causal=True, enable_gqa=True).transpose(1, 2)
+        lib_ms = None
+        try:
+            lib_err = float((library().double()
+                             - ops.flash_attention(q, k, v).double()
+                             ).abs().max())
+        except (RuntimeError, TypeError) as e:
+            log(f"scaled_dot_product_attention refused: "
+                f"{str(e).splitlines()[0][:200]}")
+        else:
+            if lib_err > 0.05:
+                log(f"scaled_dot_product_attention disagrees by {lib_err:.3g}"
+                    f"; no yardstick")
+            else:
+                lib_ms = cuda_time_ms(library)
+        bound_ms, bound_by, nbytes, flops = flash_bound(*shape)
+        rows.append(dict(shape=shape, ms=ms, plain_ms=plain_ms,
+                         library_ms=lib_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, bytes=nbytes, flops=flops,
+                         tflops=flops / ms * 1e-9))
+        log(f"flash_attention {shape}: " + json.dumps(rows[-1]))
+        del q, k, v
+    ops.flash_attention.launches = launches   # timing launches are not counted
+    return rows
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     import torch
@@ -725,6 +1044,22 @@ def main() -> int:
                     f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} "
                     f"ms, library (_scaled_mm) {row['library_ms']} ms, bound "
                     f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+    flash_err = phase("flash_kernel", lambda: check_flash_kernel(dev))
+    flash = flash_timed = None
+    if main is not None:
+        flash = phase("flash_main", lambda: flash_verdict(
+            "flash_main", *flash_check(model, batch), cfg, B, S))
+        phase("flash_long", lambda: flash_long(model, cfg, 2, 4096))
+        phase("flash_control", lambda: flash_control(cfg, model, batch))
+    if flash_err is not None:
+        flash_timed = phase("flash_timing", lambda: flash_timing(dev))
+        if flash_timed is not None:
+            for row in flash_timed:
+                log(f"flash_attention {row['shape']} bf16 causal on {card}: "
+                    f"kernel {row['ms']:.4f} ms ({row['tflops']:.2f} "
+                    f"TFLOP/s), plain {row['plain_ms']:.4f} ms, library "
+                    f"(scaled_dot_product_attention) {row['library_ms']} ms, "
+                    f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
     if failures:
         log(f"FAILED phases: {failures}")
         return 1
@@ -743,6 +1078,13 @@ def main() -> int:
             "max_abs_err": fp8_err[name], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+    row = flash_timed[0]                 # the main path's shape
+    kernels.append({
+        "name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
+        "replaces": FLASH_REPLACES, "launches": flash["launches"],
+        "max_abs_err": flash_err, "ms": row["ms"],
+        "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
     log(card_line())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

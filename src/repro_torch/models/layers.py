@@ -9,6 +9,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.tap import ensure_ctx
 
@@ -97,6 +98,41 @@ def cross_entropy(logits, labels, mask=None):
         return torch.mean(nll)
     mask = mask.float()
     return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+
+
+def _ce_chunk(hs, ls, ms, embed, scale):
+    """Masked NLL sum and mask count of one chunk of sequence positions."""
+    logits = _logits(hs, embed, scale).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, ls[..., None].long())[..., 0]
+    return torch.sum((lse - gold) * ms), torch.sum(ms)
+
+
+def chunked_cross_entropy(h, embed, labels, mask=None, chunk=512,
+                          scale=None):
+    """CE computed from hidden states without materializing (B,S,V) logits.
+
+    ``h``: (B,S,D) final hidden states; ``embed``: (V,D) output embedding.
+    Loops over sequence chunks, each recomputed in the backward, so peak
+    memory is O(B*chunk*V).  Falls back to ``cross_entropy`` when S is not
+    a multiple of ``chunk``.
+    """
+    B, S, D = h.shape
+    if S % chunk != 0:
+        return cross_entropy(_logits(h, embed, scale), labels, mask)
+    n = S // chunk
+    hc = h.reshape(B, n, chunk, D).transpose(0, 1)           # (n,B,c,D)
+    lc = labels.reshape(B, n, chunk).transpose(0, 1)         # (n,B,c)
+    mc = (mask.reshape(B, n, chunk).transpose(0, 1).float()
+          if mask is not None
+          else torch.ones((n, B, chunk), dtype=torch.float32, device=h.device))
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(n):
+        nll, c = checkpoint(_ce_chunk, hc[i], lc[i], mc[i], embed, scale,
+                            use_reentrant=False, preserve_rng_state=False)
+        tot, cnt = tot + nll, cnt + c
+    return tot / torch.clamp(cnt, min=1.0)
 
 
 def _logits(h, embed, scale=None):

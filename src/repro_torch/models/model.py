@@ -19,7 +19,8 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.tap import ensure_ctx
 from repro_torch.models.attention import GQAttention
-from repro_torch.models.layers import (SwiGLUMLP, _logits, cross_entropy,
+from repro_torch.models.layers import (SwiGLUMLP, _logits,
+                                       chunked_cross_entropy, cross_entropy,
                                        rmsnorm)
 
 # the reference switches to chunked_cross_entropy above S * V = 2^26
@@ -57,10 +58,10 @@ class Block(nn.Module):
         self.self_attention = GQAttention(gen, cfg, dtype, osc)
         self.mlp = SwiGLUMLP(gen, cfg.d_model, cfg.d_ff, dtype, osc)
 
-    def forward(self, x, ctx, precision=None):
+    def forward(self, x, ctx, use_kernel=False, precision=None):
         h = rmsnorm(self.input_norm, x)
         with ctx.scope("self_attention"):
-            x = x + self.self_attention(h, ctx=ctx)
+            x = x + self.self_attention(h, ctx=ctx, use_kernel=use_kernel)
         h = rmsnorm(self.post_attn_norm, x)
         with ctx.scope("mlp"):
             x = x + self.mlp(h, ctx=ctx, precision=precision)
@@ -108,31 +109,38 @@ class Model(nn.Module):
             h = ctx.tap("output", h.to(self.cdtype))
         return h
 
-    def apply_blocks(self, h, ctx=None, precision=None):
+    def apply_blocks(self, h, ctx=None, use_kernel=False, precision=None):
         ctx = ensure_ctx(ctx)
         for seg in self.plan:
             for j in range(seg.n):
                 li = seg.layer0 + j
                 with ctx.scope(f"layers.{li}"):
-                    h = self.layers[li](h, ctx, precision)
+                    h = self.layers[li](h, ctx, use_kernel=use_kernel,
+                                        precision=precision)
         h = rmsnorm(self.final_norm, h)
         return ctx.tap("final_norm_out", h)
 
-    def forward(self, batch, ctx=None, precision=None):
-        """``precision`` (an optional ``precision.fp8.Precision``) routes the
+    def forward(self, batch, ctx=None, use_kernel=False, precision=None):
+        """``use_kernel`` runs attention on the flash-attention kernel;
+        ``precision`` (an optional ``precision.fp8.Precision``) routes the
         MLP matmuls through its FP8 recipe; everything else stays in the
         compute dtype."""
-        return self.apply_blocks(self.embed(batch, ctx), ctx, precision)
+        return self.apply_blocks(self.embed(batch, ctx), ctx,
+                                 use_kernel=use_kernel, precision=precision)
 
-    def loss(self, batch, ctx=None, precision=None):
+    def loss(self, batch, ctx=None, use_kernel=False, precision=None):
+        """(loss, {"ce", "aux"}): next-token CE, computed in sequence
+        chunks of min(1024, S) when S * vocab > 2^26, as the reference."""
         cfg = self.cfg
-        h = self.forward(batch, ctx, precision)
+        h = self.forward(batch, ctx, use_kernel=use_kernel,
+                         precision=precision)
         e = (self.embedding.word_embeddings if cfg.tie_embeddings
              else self.lm_head)
+        labels, mask = batch["labels"], batch.get("loss_mask")
         if h.shape[1] * cfg.vocab > _CHUNKED_CE_ELEMS:
-            raise NotImplementedError(
-                "chunked_cross_entropy (S * vocab > 2^26) is not ported yet")
-        ce = cross_entropy(_logits(h, e), batch["labels"],
-                           mask=batch.get("loss_mask"))
+            ce = chunked_cross_entropy(h, e, labels, mask=mask,
+                                       chunk=min(1024, h.shape[1]))
+        else:
+            ce = cross_entropy(_logits(h, e), labels, mask=mask)
         aux = torch.zeros((), dtype=torch.float32, device=ce.device)
         return ce + aux, {"ce": ce, "aux": aux}
