@@ -61,10 +61,33 @@ prints no result line):
 15. flash_timing — the kernel per launch (CUDA events) at the main and
              long shapes, its plain version and
              ``scaled_dot_product_attention`` as the library yardstick,
-             beside the bound.
+             beside the bound;
+16. ssm_kernel — ``gla_scan`` on the card against its plain version run in
+             float64: the reference tests' sweep in f32 within 5e-4
+             absolute; rwkv6-7b's time-mix shape (2 x 4096, 64 heads of 64,
+             chunk 128, per-channel exclusive) and zamba2-7b's mixer shape
+             (112 heads, scalar inclusive), bf16 q/k/v and f32 log_w,
+             within 1e-5 normwise, as is a 60-wide shape that takes the
+             kernel's scalar staging; two launches bit-identical;
+             out-of-contract shapes and operands raise;
+17. ssm_main — ``ttrace_check`` of full-width rwkv6-7b cut to 2 layers at
+             B 2 x S 4096 under bf16 thresholds: the reference is the plain
+             model, the candidate the same model with ``models.ssm.lin_attn``
+             bound to ``kernels.ops.gla_scan`` for its forward; must PASS
+             with 2 launches per candidate run and none in the reference;
+             prints the peak device memory;
+18. ssm_control — that candidate with ``layers.1.time_mix.key.w`` doubled
+             must FAIL and be localized to ``layers.1.time_mix`` or a
+             module inside it (4 launches): the time mix is invariant to
+             the scale of k up to its group norm's epsilon, so at bf16
+             thresholds only that weight's gradients and update may flag,
+             and the checker then names its linear, ``.key``;
+19. ssm_timing — the kernel per launch (CUDA events) at the rwkv6 and
+             zamba2 shapes, beside its plain version and the bound (no
+             single PyTorch call computes it).
 
 Every kernel's launch count is set to 0 just before each path (phases 4,
-8, 12, 13 and 14) and read just after it.  At the end come the card's name and power
+8, 12, 13, 14, 17 and 18) and read just after it.  At the end come the card's name and power
 limit, then a ``{"kernels": [...]}`` JSON object, then the last line,
 ``{"ok": true, "device": {...}}``.
 """
@@ -81,6 +104,9 @@ import traceback
 
 # cuBLAS needs this before its first use for deterministic algorithms
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+# the rwkv6-7b phases hold several traces of a 0.98 B-parameter model at
+# once; growable segments keep the allocator's cache from fragmenting
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
@@ -112,14 +138,33 @@ FLASH_BF16_SHAPES = (FLASH_MAIN, FLASH_LONG, (2, 2048, 32, 4, 64),
 FLASH_F32_SHAPES = ((1, 128, 2, 2, 64), (2, 256, 4, 2, 64),
                     (1, 256, 8, 2, 128), (1, 128, 4, 1, 64))
 FLASH_MODES = (("causal", 0), ("swa", 64), ("bidirectional", 0))
+SSM_SOURCE = "src/repro_torch/kernels/csrc/ssm_scan.cu"
+SSM_REPLACES = "src/repro/kernels/ssm_scan.py:104"
+SSM_LAYERS = 2                     # rwkv6-7b at full width, cut to 2 layers
+SSM_LAUNCHES_PER_RUN = SSM_LAYERS  # one scan per layer
+SSM_SWEEP_TOL = 5e-4               # absolute, against float64 (test_kernels)
+SSM_NORM_TOL = 1e-5                # normwise relative, against float64
+# (B, S, H, dk, dv, chunk, scalar decay, exclusive): rwkv6-7b's time mix
+# (per-channel, exclusive) and zamba2-7b's Mamba2 mixer (scalar, inclusive,
+# H = 2 * 3584 / 64)
+SSM_RWKV = (2, 4096, 64, 64, 64, 128, False, True)
+SSM_ZAMBA = (2, 4096, 112, 64, 64, 128, True, False)
+# rows of 60 bf16 are not whole 16-byte pieces: the kernel's scalar staging
+SSM_UNALIGNED = (1, 512, 4, 60, 60, 128, False, True)
+# the reference tests' sweep (tests/test_kernels.py), B 2 x S 128, 2 heads
+SSM_SWEEP = tuple((2, 128, 2, dk, dv, chunk, scalar, excl)
+                  for dk, dv, chunk in ((16, 16, 32), (8, 32, 16), (32, 16, 64))
+                  for scalar, excl in ((True, False), (False, False),
+                                       (False, True)))
 
 
 def kernel_wrappers():
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import ops, ssm_scan
     return {"packed_sq_norms": ops.packed_sq_norms,
             "fp8_matmul": ops.fp8_matmul,
             "fp8_matmul_tile128": ops.fp8_matmul_tile128,
-            "flash_attention": ops.flash_attention}
+            "flash_attention": ops.flash_attention,
+            "gla_scan": ssm_scan.gla_scan}
 
 
 def reset_counts():
@@ -290,10 +335,12 @@ def main_path(device, cfg, batch_size, seq, eps):
     return res, stats, model, batch
 
 
-def check_trace_shapes(res, cfg, batch_size, seq):
+def check_trace_shapes(res, cfg, batch_size, seq, taps_per_layer=5,
+                       params_per_layer=7):
     L, d = cfg.n_layers, cfg.d_model
-    n_params = 2 + 7 * L + (0 if cfg.tie_embeddings else 1)
-    want = {"activations": 5 * L + 2, "act_grads": 5 * L + 2,
+    n_params = 2 + params_per_layer * L + (0 if cfg.tie_embeddings else 1)
+    n_taps = taps_per_layer * L + 2
+    want = {"activations": n_taps, "act_grads": n_taps,
             "param_grads": n_params, "main_grads": n_params,
             "params_post": n_params}
     for tr in (res.reference, res.candidate):
@@ -926,6 +973,300 @@ def flash_timing(device):
 
 
 # ---------------------------------------------------------------------------
+# phases 16-19: the rwkv6-7b check whose time mix runs on the gla_scan kernel
+# ---------------------------------------------------------------------------
+
+def ssm_inputs(shape, dtype, device, seed):
+    """q, k, v in ``dtype`` and f32 log_w for one ``gla_scan`` shape.  The
+    sweep draws its decays as ``test_kernels.py`` does; rwkv6-7b's come
+    from the model's own formula, -exp(w0 + tanh(x A) B) with its init
+    (w0 = -6, A and B at 0.02); zamba2's are -softplus(normal), the
+    reference test's scalar draw."""
+    import torch
+    import torch.nn.functional as F
+    B, S, H, dk, dv, _, scalar, _ = shape
+    gen = torch.Generator().manual_seed(seed)
+
+    def randn(*size):
+        return torch.randn(size, generator=gen).to(device)
+    q, k, v = (randn(B, S, H, d).to(dtype) for d in (dk, dk, dv))
+    if scalar:
+        lw = -F.softplus(randn(B, S, H, 1))
+    elif shape == SSM_RWKV:
+        d = H * dk
+        x = randn(B * S, d)
+        lora = torch.tanh(x @ (0.02 * randn(d, 64))) @ (0.02 * randn(64, d))
+        lw = -torch.exp(-6.0 + lora).reshape(B, S, H, dk)
+    else:
+        lw = -0.02 * torch.sigmoid(randn(B, S, H, dk))
+    return q, k, v, lw.float().contiguous()
+
+
+def normwise(got, ref):
+    return float((got.double() - ref).norm() / ref.norm().clamp_min(1e-300))
+
+
+def check_ssm_kernel(device):
+    """``gla_scan`` against its plain version in float64 on the same inputs:
+    the reference tests' sweep in f32 within SSM_SWEEP_TOL absolute, the
+    rwkv6 and zamba2 full-width shapes and SSM_UNALIGNED (bf16 q, k, v)
+    within SSM_NORM_TOL normwise; two launches bit-identical;
+    out-of-contract shapes and operands raise.  Returns the largest
+    |kernel - plain (f32)|."""
+    import torch
+    from repro_torch.kernels import ssm_scan as K
+
+    worst = 0.0
+    cases = ([(shape, torch.float32) for shape in SSM_SWEEP]
+             + [(SSM_RWKV, torch.bfloat16), (SSM_ZAMBA, torch.bfloat16),
+                (SSM_UNALIGNED, torch.bfloat16)])
+    for i, (shape, dtype) in enumerate(cases):
+        chunk, excl = shape[5], shape[7]
+        q, k, v, lw = ssm_inputs(shape, dtype, device, seed=200 + i)
+        y1, s1 = K.gla_scan(q, k, v, lw, chunk=chunk, exclusive=excl)
+        y2, s2 = K.gla_scan(q, k, v, lw, chunk=chunk, exclusive=excl)
+        yp, sp = K.gla_scan_ref(q, k, v, lw, chunk=chunk, exclusive=excl)
+        y64, s64 = K.gla_scan_ref(q.double(), k.double(), v.double(),
+                                  lw.double(), chunk=chunk, exclusive=excl)
+        torch.cuda.synchronize(device)
+        what = (f"gla_scan {shape[:6]} {'scalar' if shape[6] else 'channel'}"
+                f"{' exclusive' if excl else ''} {str(dtype)[6:]}")
+        if y1.dtype != torch.float32 or tuple(y1.shape) != tuple(yp.shape) \
+                or tuple(s1.shape) != tuple(sp.shape):
+            raise AssertionError(f"{what}: got {y1.dtype} {tuple(y1.shape)} "
+                                 f"{tuple(s1.shape)}")
+        if not (torch.equal(y1, y2) and torch.equal(s1, s2)):
+            raise AssertionError(f"{what}: two launches differ")
+        errs = {}
+        for name, (y, st) in (("kernel", (y1, s1)), ("plain", (yp, sp))):
+            if not (bool(y.isfinite().all()) and bool(st.isfinite().all())):
+                raise AssertionError(f"{what} {name}: not finite")
+            if dtype == torch.float32:
+                e = max(float((y.double() - y64).abs().max()),
+                        float((st.double() - s64).abs().max()))
+                ok = e <= SSM_SWEEP_TOL
+            else:
+                e = max(normwise(y, y64), normwise(st, s64))
+                ok = e <= SSM_NORM_TOL
+            errs[name] = e
+            if not ok:
+                raise AssertionError(f"{what} {name}: error {e:.3g} against "
+                                     f"float64")
+        err = max(float((y1 - yp).abs().max()), float((s1 - sp).abs().max()))
+        worst = max(worst, err)
+        log(f"{what}: ok, max |kernel - plain| {err:.3g}, against float64: "
+            f"kernel {errs['kernel']:.3g}, plain {errs['plain']:.3g} "
+            f"({'absolute' if dtype == torch.float32 else 'normwise'})")
+        del q, k, v, lw, y1, s1, y2, s2, yp, sp, y64, s64
+
+    # shapes and operands outside the contract raise
+    small = (1, 256, 2, 64, 64, 128, False, True)
+    q, k, v, lw = ssm_inputs(small, torch.bfloat16, device, 9)
+    wide = torch.zeros((1, 256, 2, 192), dtype=torch.bfloat16, device=device)
+    strided = torch.zeros((1, 256, 2, 64, 2), dtype=torch.bfloat16,
+                          device=device)[..., 0]
+    refused = [
+        lambda: K.gla_scan(q[:, :200], k[:, :200], v[:, :200], lw[:, :200]),
+        lambda: K.gla_scan(q, k, v, lw[..., :3]),             # log_w dim 3
+        lambda: K.gla_scan(wide, wide, v, lw[..., :1]),       # dk 192
+        lambda: K.gla_scan(q, k, v, lw, chunk=256),           # chunk 256
+        lambda: K.gla_scan(q, k, v, lw.bfloat16()),           # bf16 log_w
+        lambda: K.gla_scan(q.float(), k, v, lw),              # mixed dtypes
+        lambda: K.gla_scan(q, k.cpu(), v, lw),                # a CPU k
+        lambda: K.gla_scan(strided, k, v, lw),                # q stride 2
+    ]
+    for i, call in enumerate(refused):
+        try:
+            call()
+        except (ValueError, TypeError) as e:
+            log(f"refused as it should be: {e}")
+        else:
+            raise AssertionError(f"out-of-contract gla_scan call {i} was "
+                                 f"accepted")
+    return worst
+
+
+def gla_runner(model, opt):
+    """The gla_scan candidate as a user builds it: the reference model with
+    its chunked scan replaced by the kernel.  ``models.ssm.lin_attn`` is
+    bound to ``kernels.ops.gla_scan`` for the length of the candidate's own
+    forward and restored after it; the generic collector traces the step."""
+    from repro_torch.core.collector import named_params, trace_fn_step
+    from repro_torch.core.harness import inputs_on
+    from repro_torch.kernels import ops
+    from repro_torch.models import ssm
+    params = named_params(model)
+
+    def on_kernel(q, k, v, log_w, chunk=128, u=None, s0=None, chunked=True):
+        if s0 is not None or not chunked or u is None:
+            raise ValueError("the gla_scan candidate runs the rwkv6 chunked "
+                             "scan from a zero state")
+        return ops.gla_scan(q, k, v, log_w, chunk=chunk, exclusive=True, u=u)
+
+    def loss_call(batch, ctx):
+        plain = ssm.lin_attn
+        ssm.lin_attn = on_kernel
+        try:
+            return model.loss(batch, ctx=ctx)[0]
+        finally:
+            ssm.lin_attn = plain
+
+    def run(batch, rewrites=None):
+        b, rw = inputs_on(model.device, batch, rewrites)
+        tr, _, _ = trace_fn_step(loss_call, params, b, opt=opt, rewrites=rw)
+        return tr
+
+    return run
+
+
+def ssm_check(model, batch, cand_model=None):
+    """One ``ttrace_check`` of the gla_scan candidate over ``cand_model``
+    (default ``model``) against the plain ``model``, with every launch count
+    set to 0 just before and read just after."""
+    from repro_torch.core.harness import make_model_runner, ttrace_check
+    from repro_torch.core.thresholds import MACHINE_EPS
+    from repro_torch.optim.adamw import AdamW
+
+    opt = AdamW(lr=1e-3)
+    ref_runs, cand_runs = [], []
+    ref = counted_runner(make_model_runner(model, opt, device=model.device),
+                         ref_runs)
+    cand = counted_runner(gla_runner(cand_model or model, opt), cand_runs)
+    reset_counts()
+    res = ttrace_check(ref, cand, batch, eps=MACHINE_EPS["bfloat16"])
+    return res, read_counts(), ref_runs, cand_runs
+
+
+def ssm_main(device, B, S):
+    """The clean check of full-width rwkv6-7b cut to SSM_LAYERS layers;
+    returns the verdict's numbers, the model and the batch."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.models.model import Model
+
+    cfg = dataclasses.replace(get_config("rwkv6-7b"), n_layers=SSM_LAYERS)
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    model = Model(cfg, seed=0, device=device)
+    batch = make_batch(cfg, B, S, seed=0, device=device)
+    log(f"rwkv6-7b, {SSM_LAYERS} layers: "
+        f"{sum(p.numel() for p in model.parameters())} parameters, built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    res, counts, ref_runs, cand_runs = ssm_check(model, batch)
+    peak = torch.cuda.max_memory_allocated(device)
+    ratio, where = worst_record(res)
+    log(res.summary())
+    log(f"ssm_main: launches {counts}; per reference run {ref_runs}; per "
+        f"candidate run {cand_runs}; step seconds {json.dumps(res.seconds)}; "
+        f"largest rel-err / threshold {ratio:.4f} ({where}); peak memory "
+        f"{peak} bytes ({peak / 2**30:.2f} GiB)")
+    if not res.passed:
+        raise AssertionError("clean rwkv6-7b gla_scan check did not PASS")
+    if [r["gla_scan"] for r in cand_runs] != [SSM_LAUNCHES_PER_RUN]:
+        raise AssertionError(f"ssm_main: candidate runs launched {cand_runs},"
+                             f" expected {SSM_LAUNCHES_PER_RUN} gla_scan "
+                             f"launches")
+    if any(r["gla_scan"] for r in ref_runs):
+        raise AssertionError("ssm_main: the reference launched the kernel")
+    check_trace_shapes(res, cfg, B, S, taps_per_layer=4, params_per_layer=21)
+    out = dict(launches=counts["gla_scan"], seconds=res.seconds,
+               worst=(where, ratio), peak_bytes=peak)
+    del res
+    return out, cfg, model, batch
+
+
+def ssm_control(model, batch):
+    """The candidate with ``layers.1.time_mix.key.w`` doubled must FAIL and
+    be localized to ``layers.1.time_mix`` or a module inside it.  Every term
+    of the time mix's y is linear in k and the per-head group norm divides
+    the scale out, so the forward barely moves: where only that weight's
+    gradients and update flag, the checker's own rule names the linear that
+    owns it, ``layers.1.time_mix.key``."""
+    import copy
+    import torch
+    torch.cuda.reset_peak_memory_stats()
+    bad = copy.deepcopy(model)
+    with torch.no_grad():
+        bad.layers[1].time_mix.key.w.mul_(2.0)
+    res, counts, _, cand_runs = ssm_check(model, batch, cand_model=bad)
+    peak = torch.cuda.max_memory_allocated()
+    log(res.summary())
+    ratio, where = worst_record(res)
+    log(f"ssm control step seconds: {json.dumps(res.seconds)}; launches "
+        f"{counts}; per candidate run {cand_runs}; largest rel-err / "
+        f"threshold {ratio:.4f} ({where}); localized {res.localized_module!r}"
+        f" ({res.report.localization_mode}); peak memory {peak} bytes "
+        f"({peak / 2**30:.2f} GiB)")
+    loc = res.localized_module or ""
+    if res.passed or not (loc == "layers.1.time_mix"
+                          or loc.startswith("layers.1.time_mix.")):
+        raise AssertionError(f"doubled layers.1.time_mix.key.w: passed="
+                             f"{res.passed}, localized {loc!r}")
+    if counts["gla_scan"] != 2 * SSM_LAUNCHES_PER_RUN:
+        raise AssertionError(f"ssm control launched {counts['gla_scan']}, "
+                             f"expected {2 * SSM_LAUNCHES_PER_RUN}")
+    return loc
+
+
+def ssm_bound(shape, elem_bytes=2):
+    """(bound ms, bound_by, bytes, flops) of one scan: q, k, v and log_w
+    (f32) read once, y and the state (f32) written once; the four products
+    of each chunk counted whole (A, A v, q_t S and the state update), on
+    the bf16 tensor cores."""
+    B, S, H, dk, dv, C, scalar, _ = shape
+    dw = 1 if scalar else dk
+    nbytes = (elem_bytes * B * S * H * (2 * dk + dv) + 4 * B * S * H * dw
+              + 4 * B * S * H * dv + 4 * B * H * dk * dv)
+    flops = B * H * (S // C) * 2 * (C * C * dk + C * C * dv + 2 * C * dk * dv)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / BF16_FLOPS * 1e3
+    return (max(bytes_ms, ops_ms),
+            "bytes" if bytes_ms >= ops_ms else "operations", nbytes, flops)
+
+
+def ssm_timing(device):
+    """Per launch (CUDA events) at the rwkv6 and zamba2 full-width shapes:
+    the kernel and its plain version (f32), and the share of a block's SM
+    cycles each phase of the kernel takes (one profiled launch).  No single
+    PyTorch call computes this function, so there is no library
+    yardstick."""
+    import torch
+    from repro_torch.kernels import ssm_scan as K
+
+    launches = K.gla_scan.launches
+    rows = []
+    for shape in (SSM_RWKV, SSM_ZAMBA):
+        q, k, v, lw = ssm_inputs(shape, torch.bfloat16, device, seed=0)
+        chunk, excl = shape[5], shape[7]
+        ms = cuda_time_ms(lambda: K.gla_scan(q, k, v, lw, chunk=chunk,
+                                             exclusive=excl))
+        plain_ms = cuda_time_ms(lambda: K.gla_scan_ref(
+            q, k, v, lw, chunk=chunk, exclusive=excl), reps=5, warmup=1)
+        bound_ms, bound_by, nbytes, flops = ssm_bound(shape)
+        # where a block's time goes: SM cycles per phase, mean over blocks
+        prof = torch.zeros((shape[0] * shape[2] * -(-shape[4] // 8),
+                            len(K.PHASES)), dtype=torch.int64, device=device)
+        K._launch(q, k, v, lw, chunk, excl, prof=prof)
+        prof = prof[prof[:, -1] > 0]
+        blocks = prof.shape[0]
+        cycles = prof.double().mean(0).tolist()
+        rows.append(dict(shape=shape[:6], decay="scalar" if shape[6]
+                         else "per-channel", exclusive=excl, ms=ms,
+                         plain_ms=plain_ms, library_ms=None,
+                         bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+                         flops=flops, tflops=flops / ms * 1e-9,
+                         gbytes_per_s=nbytes / ms * 1e-6, blocks=blocks,
+                         block_cycles=cycles[-1],
+                         phase_share={n: c / cycles[-1] for n, c in
+                                      zip(K.PHASES[:-1], cycles)}))
+        log(f"gla_scan {shape[:6]}: " + json.dumps(rows[-1]))
+        del q, k, v, lw
+    K.gla_scan.launches = launches        # timing launches are not counted
+    return rows
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     import torch
@@ -1060,6 +1401,27 @@ def main() -> int:
                     f"TFLOP/s), plain {row['plain_ms']:.4f} ms, library "
                     f"(scaled_dot_product_attention) {row['library_ms']} ms, "
                     f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+    # the rwkv6-7b phases need most of the card: drop the gpt-paper state
+    main = res = model = batch = None
+    torch.cuda.empty_cache()
+    ssm_err = phase("ssm_kernel", lambda: check_ssm_kernel(dev))
+    ssm = ssm_timed = None
+    B_ssm, S_ssm = 2, 4096
+    ssm_run = phase("ssm_main", lambda: ssm_main(dev, B_ssm, S_ssm))
+    if ssm_run is not None:
+        ssm, _, ssm_model, ssm_batch = ssm_run
+        torch.cuda.empty_cache()
+        phase("ssm_control", lambda: ssm_control(ssm_model, ssm_batch))
+        del ssm_run, ssm_model, ssm_batch
+    if ssm_err is not None:
+        ssm_timed = phase("ssm_timing", lambda: ssm_timing(dev))
+        if ssm_timed is not None:
+            for row in ssm_timed:
+                log(f"gla_scan {row['shape']} {row['decay']} on {card}: "
+                    f"kernel {row['ms']:.4f} ms ({row['tflops']:.2f} TFLOP/s,"
+                    f" {row['gbytes_per_s']:.1f} GB/s), plain "
+                    f"{row['plain_ms']:.4f} ms, library: no single call, "
+                    f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
     if failures:
         log(f"FAILED phases: {failures}")
         return 1
@@ -1083,6 +1445,13 @@ def main() -> int:
         "name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
         "replaces": FLASH_REPLACES, "launches": flash["launches"],
         "max_abs_err": flash_err, "ms": row["ms"],
+        "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+    row = ssm_timed[0]                   # rwkv6-7b's shape, the path's
+    kernels.append({
+        "name": "gla_scan", "route": "cuda", "source": SSM_SOURCE,
+        "replaces": SSM_REPLACES, "launches": ssm["launches"],
+        "max_abs_err": ssm_err, "ms": row["ms"],
         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
         "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
     log(card_line())

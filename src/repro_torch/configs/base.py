@@ -1,19 +1,35 @@
-"""Architecture configuration: the dense subset of ``repro/configs/base.py``.
+"""Architecture configuration: the dense and SSM subset of
+``repro/configs/base.py``.
 
-The port carries only the fields the dense decoder path reads; MoE, MLA,
-SSM, hybrid and frontend fields arrive with the slices that port those
-models.  ``reduced()`` gives the same CPU-smoke variant as the reference.
+The port carries only the fields the dense decoder and RWKV-6 paths read
+(``SSMConfig`` is copied whole, mamba2 fields included); MoE, MLA, hybrid
+and frontend fields arrive with the slices that port those models.
+``reduced()`` gives the same CPU-smoke variant as the reference.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+from typing import Optional
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    kind: str = "mamba2"        # "mamba2" | "rwkv6"
+    d_state: int = 64           # mamba2 SSM state size
+    d_head: int = 64            # SSM head dim
+    expand: int = 2             # d_inner = expand * d_model
+    conv_kernel: int = 4
+    chunk: int = 128            # chunked-scan block length
+    # rwkv6
+    decay_lora: int = 64        # rank of the data-dependent decay LoRA (Finch)
+    mix_lora: int = 32          # rank of the data-dependent token-shift LoRA
 
 
 @dataclass(frozen=True)
 class ArchConfig:
     name: str
-    arch_type: str              # dense (the only family ported so far)
+    arch_type: str              # dense | ssm (the families ported so far)
     n_layers: int
     d_model: int
     n_heads: int
@@ -24,12 +40,14 @@ class ArchConfig:
     source: str = ""            # citation
 
     # attention flavour
-    attn: str = "full"          # full | swa
+    attn: str = "full"          # full | swa | none (ssm)
     window: int = 0             # sliding-window size when attn == "swa"
     rope_theta: float = 10_000.0
     causal: bool = True
 
     tie_embeddings: bool = False
+
+    ssm: Optional[SSMConfig] = None
 
     # numerics
     param_dtype: str = "float32"
@@ -44,6 +62,11 @@ class ArchConfig:
         d_model = min(self.d_model, 256)
         n_heads = min(self.n_heads, 4)
         n_kv = max(1, min(self.n_kv_heads, n_heads))
+        kw = {}
+        if self.ssm is not None:
+            kw["ssm"] = dataclasses.replace(
+                self.ssm, d_state=16, d_head=32, chunk=32, decay_lora=16,
+                mix_lora=8)
         return dataclasses.replace(
             self,
             n_layers=2,
@@ -56,6 +79,7 @@ class ArchConfig:
             window=min(self.window, 64) if self.window else 0,
             compute_dtype="float32",
             param_dtype="float32",
+            **kw,
         )
 
 
@@ -71,7 +95,8 @@ def register(cfg: ArchConfig) -> ArchConfig:
 
 def get_config(name: str) -> ArchConfig:
     # importing each per-arch module registers it
-    from repro_torch.configs import gpt_paper, tinyllama_11b  # noqa: F401
+    from repro_torch.configs import (  # noqa: F401
+        gpt_paper, rwkv6_7b, tinyllama_11b)
     try:
         return _REGISTRY[name]
     except KeyError:

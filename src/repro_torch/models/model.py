@@ -1,10 +1,12 @@
-"""Model assembly: the dense-decoder port of ``repro/models/model.py``.
+"""Model assembly: the dense-decoder and RWKV-6 port of
+``repro/models/model.py``.
 
 ``named_parameters()`` gives exactly the reference's
 ``collector.flatten_named(params)`` names (``embedding.word_embeddings``,
-``final_norm``, ``layers.{i}.self_attention.linear_qkv.w``, ...), and the
-forward taps the reference's names in the reference's order.  Sharding
-constraints have no counterpart on one card.
+``final_norm``, ``layers.{i}.self_attention.linear_qkv.w``,
+``layers.{i}.time_mix.mix_A``, ...), and the forward taps the reference's
+names in the reference's order.  Sharding constraints have no counterpart
+on one card.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ from repro_torch.models.attention import GQAttention
 from repro_torch.models.layers import (SwiGLUMLP, _logits,
                                        chunked_cross_entropy, cross_entropy,
                                        rmsnorm)
+from repro_torch.models.ssm import RWKV6ChannelMix, RWKV6TimeMix
 
 # the reference switches to chunked_cross_entropy above S * V = 2^26
 _CHUNKED_CE_ELEMS = 1 << 26
@@ -30,17 +33,20 @@ _CHUNKED_CE_ELEMS = 1 << 26
 @dataclass(frozen=True)
 class Segment:
     name: str          # params key; also the tap scope
-    kind: str          # attn_mlp (the only kind ported so far)
+    kind: str          # attn_mlp | rwkv (the kinds ported so far)
     n: int             # number of layers in this segment
     layer0: int        # global index of the first layer (canonical naming)
 
 
 def build_plan(cfg: ArchConfig) -> list[Segment]:
-    if cfg.arch_type != "dense" or cfg.attn not in ("full", "swa"):
-        # MoE / SSM / hybrid / MLA and the frontends are later slices
-        raise NotImplementedError(
-            f"{cfg.name}: only dense GQA decoders are ported so far")
-    return [Segment("layers", "attn_mlp", cfg.n_layers, 0)] if cfg.n_layers else []
+    if cfg.arch_type == "dense" and cfg.attn in ("full", "swa"):
+        return ([Segment("layers", "attn_mlp", cfg.n_layers, 0)]
+                if cfg.n_layers else [])
+    if cfg.arch_type == "ssm":
+        return [Segment("layers", "rwkv", cfg.n_layers, 0)]
+    # MoE / hybrid / MLA and the frontends are later slices
+    raise NotImplementedError(
+        f"{cfg.name}: only dense GQA decoders and RWKV-6 are ported so far")
 
 
 def _out_scale(cfg):  # megatron-style scaled residual-output init
@@ -66,6 +72,33 @@ class Block(nn.Module):
         with ctx.scope("mlp"):
             x = x + self.mlp(h, ctx=ctx, precision=precision)
         return x
+
+
+class RWKVBlock(nn.Module):
+    """``block_init`` / ``block_apply`` for the ``rwkv`` kind.  As in the
+    reference, ``use_kernel`` and ``precision`` do not reach it: a
+    candidate puts the scan on the kernel by binding ``models.ssm.lin_attn``
+    itself."""
+
+    def __init__(self, gen, cfg: ArchConfig, dtype):
+        super().__init__()
+        osc = _out_scale(cfg)
+        self.time_mix = RWKV6TimeMix(gen, cfg, dtype, osc)
+        self.channel_mix = RWKV6ChannelMix(gen, cfg, dtype, osc)
+        self.input_norm = nn.Parameter(torch.ones(cfg.d_model, dtype=dtype))
+        self.post_tm_norm = nn.Parameter(torch.ones(cfg.d_model, dtype=dtype))
+
+    def forward(self, x, ctx, use_kernel=False, precision=None):
+        h = rmsnorm(self.input_norm, x)
+        with ctx.scope("time_mix"):
+            x = x + self.time_mix(h, ctx=ctx)[0]
+        h = rmsnorm(self.post_tm_norm, x)
+        with ctx.scope("channel_mix"):
+            x = x + self.channel_mix(h, ctx=ctx)[0]
+        return x
+
+
+BLOCKS = {"attn_mlp": Block, "rwkv": RWKVBlock}
 
 
 class Embedding(nn.Module):
@@ -94,7 +127,7 @@ class Model(nn.Module):
             self.lm_head = nn.Parameter(
                 (0.02 * torch.randn(cfg.vocab, cfg.d_model, generator=gen)
                  ).to(dtype))
-        self.layers = nn.ModuleList(Block(gen, cfg, dtype)
+        self.layers = nn.ModuleList(BLOCKS[seg.kind](gen, cfg, dtype)
                                     for seg in self.plan for _ in range(seg.n))
         self.to(dev)
 

@@ -2,8 +2,9 @@
 
 Parameters and batches come from the JAX package (``Model.init``,
 ``make_batch``) and cross to the port as numpy by ``flatten_named`` name.
-Configs are ``gpt-paper`` and ``tinyllama-1.1b`` ``.reduced()`` with
-``n_layers=2, vocab=256``.
+Configs are ``gpt-paper`` and ``tinyllama-1.1b`` (the dense ``CONFIGS``) and
+``rwkv6-7b`` (``RWKV``, at ``RWKV_SEQ`` tokens so that its chunk of 32
+gives two chunks), each ``.reduced()`` with ``n_layers=2, vocab=256``.
 """
 import dataclasses
 import functools
@@ -23,6 +24,7 @@ from repro_torch.models.model import Model as TorchModel
 
 CONFIGS = ("gpt-paper", "tinyllama-1.1b")
 BATCH, SEQ = 2, 16
+RWKV, RWKV_SEQ = "rwkv6-7b", 64
 
 
 def configs(name):

@@ -31,9 +31,11 @@ def _modules():
 
 def test_importing_every_module_loads_no_jax_and_no_repro():
     mods = _modules()
-    assert "repro_torch.core.harness" in mods and len(mods) >= 32
+    assert "repro_torch.core.harness" in mods and len(mods) >= 35
     assert {"repro_torch.precision.fp8", "repro_torch.kernels.fp8_matmul",
-            "repro_torch.bugs.registry"} <= set(mods)
+            "repro_torch.bugs.registry", "repro_torch.models.ssm",
+            "repro_torch.kernels.ssm_scan",
+            "repro_torch.configs.rwkv6_7b"} <= set(mods)
     code = ("import sys\n"
             + "".join(f"import {m}\n" for m in mods)
             + "bad = sorted(m for m in sys.modules if m == 'jax' or "
