@@ -40,14 +40,18 @@ prints no result line):
              path's two shapes, its plain version and ``torch._scaled_mm``
              as the library yardstick, beside the bound;
 11. flash_kernel — ``flash_attention`` on the card against its plain
-             version and a float64 ``attention_ref``: bf16 causal at the
-             main path's shape (8 x 1024, 8 heads of 64), the long path's
-             (2 x 4096), a GQA shape at tinyllama-1.1b's heads (2 x 2048, 32
-             heads, 4 kv) and a D 128 one at qwen3-32b's (1 x 1024, 64
-             heads, 8 kv), then the reference tests' sweep in f32 in every
-             mode; f32 within 2e-5 of float64, bf16 within half a bf16 ulp
-             (plus 2e-5); two launches bit-identical; out-of-contract
-             shapes and operands raise;
+             version and a float64 ``attention_ref``: bf16 (the TMA + wgmma
+             kernel) causal at the main path's shape (8 x 1024, 8 heads of
+             64), the long path's (2 x 4096), a GQA shape at
+             tinyllama-1.1b's heads (2 x 2048, 32 heads, 4 kv) and a D 128
+             one at qwen3-32b's (1 x 1024, 64 heads, 8 kv); then the
+             reference tests' sweep and two ragged-S shapes (S 100 and 200,
+             rows past S from TMA's zero fill) in every mode, in bf16 and
+             in f32 (the FMA kernel); f32 within 2e-5 of float64, bf16
+             within half a bf16 ulp (plus 2e-5); each case's entry point
+             logged and checked against its dtype; two launches
+             bit-identical; out-of-contract shapes and operands raise,
+             bf16 ones that break TMA's 16-byte rules included;
 12. flash_main — the flash-attention candidate (``trace_fn_step`` over
              ``loss(use_kernel=True)``) of the same model and batch must
              PASS under bf16 thresholds, launching the kernel 12 times (one
@@ -58,10 +62,19 @@ prints no result line):
 14. flash_control — the flash candidate with
              ``layers.3.self_attention.linear_qkv.w`` doubled must FAIL and
              be localized to ``layers.3.self_attention`` (24 launches);
-15. flash_timing — the kernel per launch (CUDA events) at the main and
-             long shapes, its plain version and
-             ``scaled_dot_product_attention`` as the library yardstick,
-             beside the bound;
+15. flash_timing — the bf16 kernel per launch at the main and long
+             shapes (CUDA events, the card held busy while the launches
+             are queued, so the wrapper's host time does not show; the
+             wrapper's back-to-back time beside it), its plain version and
+             ``scaled_dot_product_attention`` timed the same way as the
+             library yardstick (as the script runs it, in deterministic
+             mode, and under each of its backends with that mode off),
+             beside the bound (4 D flops per unmasked
+             pair), the kernel's share of it and its executed TFLOP/s (6 D
+             flops per unmasked pair: p v is taken as p_hi v + p_lo v); the
+             registers, shared memory and spills of each build; the share
+             of a consumer warpgroup's SM cycles each phase takes (one
+             launch of the profiled build, ``clock64``);
 16. ssm_kernel — ``gla_scan`` on the card against its plain version run in
              float64: the reference tests' sweep in f32 within 5e-4
              absolute; rwkv6-7b's time-mix shape (2 x 4096, 64 heads of 64,
@@ -124,7 +137,7 @@ FP8_REPLACES = {"fp8_matmul": "src/repro/kernels/fp8_matmul.py:56",
 FP8_MAIN_SHAPES = (((8192, 512, 2048), 24), ((8192, 2048, 512), 12))
 FP8_LAUNCHES_PER_RUN = 36
 BF16_FLOPS = 989e12                # H100 SXM bf16 tensor cores, dense
-FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
+FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu"
 FLASH_REPLACES = "src/repro/kernels/flash_attention.py:110"
 FLASH_LAUNCHES_PER_RUN = 12        # one per layer of full-width gpt-paper
 FLASH_F32_TOL = 2e-5               # absolute, against float64 (test_kernels)
@@ -134,9 +147,12 @@ FLASH_MAIN = (8, 1024, 8, 8, 64)
 FLASH_LONG = (2, 4096, 8, 8, 64)
 FLASH_BF16_SHAPES = (FLASH_MAIN, FLASH_LONG, (2, 2048, 32, 4, 64),
                      (1, 1024, 64, 8, 128))
-# the reference tests' sweep (tests/test_kernels.py), f32, every mode
-FLASH_F32_SHAPES = ((1, 128, 2, 2, 64), (2, 256, 4, 2, 64),
-                    (1, 256, 8, 2, 128), (1, 128, 4, 1, 64))
+# the reference tests' sweep (tests/test_kernels.py) and two ragged S,
+# whose rows past S the bf16 kernel's TMA fills with zeros; every mode,
+# both dtypes
+FLASH_SWEEP_SHAPES = ((1, 128, 2, 2, 64), (2, 256, 4, 2, 64),
+                      (1, 256, 8, 2, 128), (1, 128, 4, 1, 64),
+                      (1, 100, 4, 2, 64), (1, 200, 4, 1, 128))
 FLASH_MODES = (("causal", 0), ("swa", 64), ("bidirectional", 0))
 SSM_SOURCE = "src/repro_torch/kernels/csrc/ssm_scan.cu"
 SSM_REPLACES = "src/repro/kernels/ssm_scan.py:104"
@@ -708,48 +724,66 @@ def check_flash_kernel(device):
     on the same inputs.  f32: within FLASH_F32_TOL of float64 (f32
     summation order, as ``test_kernels.py``).  bf16: within half a bf16 ulp
     of the float64 value (the output's one rounding, 2^-8 relative) plus
-    FLASH_F32_TOL for the f32 sums before it.  Two launches must give
-    identical bits.  Returns the largest |kernel - plain|."""
+    FLASH_F32_TOL for the f32 sums before it.  Each case must take its
+    dtype's entry point; two launches must give identical bits.  Returns
+    the largest |kernel - plain|."""
     import torch
+    from repro_torch.kernels import flash_attention as TF
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import flash_attention_ref
     from repro_torch.models.attention import attention_ref
 
     cases = [(shape, torch.bfloat16, "causal", 0)
              for shape in FLASH_BF16_SHAPES]
-    cases += [(shape, torch.float32, mode, window)
-              for shape in FLASH_F32_SHAPES for mode, window in FLASH_MODES]
+    cases += [(shape, dtype, mode, window)
+              for dtype in (torch.bfloat16, torch.float32)
+              for shape in FLASH_SWEEP_SHAPES for mode, window in FLASH_MODES]
+    entries = []
+    real_lib = TF._lib
+
+    def logged_lib(source, symbol, *args):
+        entries.append(symbol)
+        return real_lib(source, symbol, *args)
+    TF._lib = logged_lib
     worst = 0.0
-    for i, (shape, dtype, mode, window) in enumerate(cases):
-        q, k, v = flash_inputs(*shape, dtype, device, seed=100 + i)
-        k1 = ops.flash_attention(q, k, v, mode=mode, window=window)
-        k2 = ops.flash_attention(q, k, v, mode=mode, window=window)
-        p = flash_attention_ref(q, k, v, mode=mode, window=window)
-        ref = attention_ref(q.double(), k.double(), v.double(), mode=mode,
-                            window=window)
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        what = f"flash {tuple(shape)} {str(dtype)[6:]} {mode}"
-        if k1.dtype != dtype or tuple(k1.shape) != tuple(q.shape):
-            raise AssertionError(f"{what}: got {k1.dtype} {tuple(k1.shape)}")
-        if not torch.equal(k1, k2):
-            raise AssertionError(f"{what}: two launches differ")
-        rel = 2.0 ** -8 if dtype == torch.bfloat16 else 0.0
-        for name, got in (("kernel", k1), ("plain", p)):
-            over = (got.double() - ref).abs() - (rel * ref.abs()
-                                                 + FLASH_F32_TOL)
-            if bool((over > 0).any()) or not bool(got.isfinite().all()):
-                j = int(over.reshape(-1).argmax())
-                raise AssertionError(
-                    f"{what} {name}: element {j} is "
-                    f"{float(got.reshape(-1)[j])} vs float64 "
-                    f"{float(ref.reshape(-1)[j])}, over the bound by "
-                    f"{float(over.max())}")
-        err = float((k1.double() - p.double()).abs().max())
-        worst = max(worst, err)
-        log(f"{what}: ok, max |kernel - plain| {err:.3g}, max |kernel - f64| "
-            f"{float((k1.double() - ref).abs().max()):.3g}")
-        del q, k, v, k1, k2, p, ref
+    try:
+        for i, (shape, dtype, mode, window) in enumerate(cases):
+            q, k, v = flash_inputs(*shape, dtype, device, seed=100 + i)
+            entries.clear()
+            k1 = ops.flash_attention(q, k, v, mode=mode, window=window)
+            k2 = ops.flash_attention(q, k, v, mode=mode, window=window)
+            p = flash_attention_ref(q, k, v, mode=mode, window=window)
+            ref = attention_ref(q.double(), k.double(), v.double(), mode=mode,
+                                window=window)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            what = f"flash {tuple(shape)} {str(dtype)[6:]} {mode}"
+            if entries != [TF.ENTRY_POINTS[dtype][1]] * 2:
+                raise AssertionError(f"{what}: launched {entries}")
+            if k1.dtype != dtype or tuple(k1.shape) != tuple(q.shape):
+                raise AssertionError(f"{what}: got {k1.dtype} "
+                                     f"{tuple(k1.shape)}")
+            if not torch.equal(k1, k2):
+                raise AssertionError(f"{what}: two launches differ")
+            rel = 2.0 ** -8 if dtype == torch.bfloat16 else 0.0
+            for name, got in (("kernel", k1), ("plain", p)):
+                over = (got.double() - ref).abs() - (rel * ref.abs()
+                                                     + FLASH_F32_TOL)
+                if bool((over > 0).any()) or not bool(got.isfinite().all()):
+                    j = int(over.reshape(-1).argmax())
+                    raise AssertionError(
+                        f"{what} {name}: element {j} is "
+                        f"{float(got.reshape(-1)[j])} vs float64 "
+                        f"{float(ref.reshape(-1)[j])}, over the bound by "
+                        f"{float(over.max())}")
+            err = float((k1.double() - p.double()).abs().max())
+            worst = max(worst, err)
+            log(f"{what} via {entries[0]}: ok, max |kernel - plain| "
+                f"{err:.3g}, max |kernel - f64| "
+                f"{float((k1.double() - ref).abs().max()):.3g}")
+            del q, k, v, k1, k2, p, ref
+    finally:
+        TF._lib = real_lib
 
     # shapes and operands outside the contract raise
     bf = torch.bfloat16
@@ -758,6 +792,11 @@ def check_flash_kernel(device):
     d96 = flash_inputs(1, 64, 2, 2, 96, bf, device, 9)
     wide = torch.zeros((1, 64, 2, 64, 2), dtype=bf, device=device)[..., 0]
     s = slice(0, 64)
+    # bf16 for TMA: a base 8 bytes past a 16-byte boundary, and rows 136
+    # bytes apart (4-element rows, enough for f32 but not for TMA)
+    flat = torch.zeros(1 * 64 * 2 * 64 + 8, dtype=bf, device=device)
+    shifted = flat[4:4 + 64 * 2 * 64].view(1, 64, 2, 64)
+    rows68 = torch.zeros((1, 64, 2, 68), dtype=bf, device=device)[..., :64]
     refused = [
         lambda: ops.flash_attention(q, k, v),                 # 768 % 512
         lambda: ops.flash_attention(*gqa),                    # 6 % 4
@@ -765,7 +804,10 @@ def check_flash_kernel(device):
         lambda: ops.flash_attention(wide, k[:, s], v[:, s]),  # D stride 2
         lambda: ops.flash_attention(q[:, s], k[:, s].cpu(), v[:, s]),
         lambda: ops.flash_attention(q[:, s], k[:, s].float(), v[:, s]),
+        lambda: ops.flash_attention(shifted, k[:, s], v[:, s]),
+        lambda: ops.flash_attention(q[:, s], rows68, v[:, s]),
     ]
+    launches = ops.flash_attention.launches
     for i, call in enumerate(refused):
         try:
             call()
@@ -774,6 +816,8 @@ def check_flash_kernel(device):
         else:
             raise AssertionError(f"out-of-contract flash call {i} was "
                                  f"accepted")
+    if ops.flash_attention.launches != launches:
+        raise AssertionError("a refused flash call launched a kernel")
     return worst
 
 
@@ -926,20 +970,109 @@ def flash_bound(B, S, H, Hkv, D, elem_bytes=2):
             "bytes" if bytes_ms >= ops_ms else "operations", nbytes, flops)
 
 
-def flash_timing(device):
-    """Per launch (CUDA events), bf16 causal: the kernel, its plain
-    version and ``scaled_dot_product_attention`` on (B,H,S,D) views as the
-    library yardstick (timed here only; the port never calls it)."""
+def device_time_ms(fn, reps=20, warmup=3) -> float:
+    """Per call (CUDA events), with the card held busy while the calls are
+    queued, so the host's time to launch them does not show."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(20_000_000)          # some 10 ms of the card's cycles
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def ptxas_summary(source):
+    """Registers, stack and spills of each kernel in ``source``'s build log
+    (``nvcc -Xptxas -v``), by mangled name."""
+    import re
+    from repro_torch.kernels import build
+    out, fn = {}, None
+    for line in build.lib_path(source).with_suffix(".log").read_text() \
+            .splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn = out.setdefault(m.group(1), {})
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and fn is not None:
+            fn.update(stack=int(m[1]), spill_stores=int(m[2]),
+                      spill_loads=int(m[3]))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn is not None:
+            fn["registers"] = int(m[1])
+    return out
+
+
+def sdpa_backends_ms(q, k, v, want):
+    """``scaled_dot_product_attention`` on (B,H,S,D) views, causal, under
+    each of its CUDA backends, with deterministic algorithms off while it
+    runs (the script's deterministic mode narrows SDPA's choice): ms per
+    call (``device_time_ms``), or None for a backend that refuses or
+    disagrees with ``want`` (bf16, (B,S,H,D)) by more than 0.05."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels import ops
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    gqa = q.shape[2] != k.shape[2]
+    out = {}
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(False)
+    try:
+        for name in ("FLASH_ATTENTION", "EFFICIENT_ATTENTION",
+                     "CUDNN_ATTENTION"):
+            backend = getattr(SDPBackend, name, None)
+
+            def call(backend=backend):
+                with sdpa_kernel(backend):
+                    return F.scaled_dot_product_attention(
+                        q.transpose(1, 2), k.transpose(1, 2),
+                        v.transpose(1, 2), is_causal=True, enable_gqa=gqa)
+            out[name.lower()] = None
+            try:
+                err = float((call().transpose(1, 2).double()
+                             - want.double()).abs().max())
+            except (RuntimeError, TypeError) as e:
+                log(f"SDPA {name} refused: {str(e).splitlines()[0][:160]}")
+                continue
+            if err > 0.05:
+                log(f"SDPA {name} disagrees by {err:.3g}; not timed")
+                continue
+            out[name.lower()] = device_time_ms(call)
+    finally:
+        torch.use_deterministic_algorithms(deterministic)
+    return out
+
+
+def flash_timing(device):
+    """Per launch, bf16 causal: the kernel, its plain version and
+    ``scaled_dot_product_attention`` on (B,H,S,D) views as the library
+    yardstick (timed here only; the port never calls it), the kernel's
+    builds and one profiled launch a shape."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import build, ops
+    from repro_torch.kernels import flash_attention as TF
     from repro_torch.kernels.flash_attention import flash_attention_ref
 
     launches = ops.flash_attention.launches
+    smem = build.load("flash_attention_wgmma").repro_flash_attention_wgmma_smem
+    builds = {name: dict(info, dynamic_smem_bytes=smem(
+        64 if "ILi64E" in name else 128))
+        for name, info in ptxas_summary("flash_attention_wgmma").items()}
+    for name, info in builds.items():
+        log(f"flash_attention_wgmma build {name}: {json.dumps(info)}")
     rows = []
     for shape in (FLASH_MAIN, FLASH_LONG):
         q, k, v = flash_inputs(*shape, torch.bfloat16, device, seed=0)
-        ms = cuda_time_ms(lambda: ops.flash_attention(q, k, v))
+        ms = device_time_ms(lambda: ops.flash_attention(q, k, v))
+        wrapper_ms = cuda_time_ms(lambda: ops.flash_attention(q, k, v))
         plain_ms = cuda_time_ms(lambda: flash_attention_ref(q, k, v), reps=5,
                                 warmup=1)
 
@@ -960,16 +1093,24 @@ def flash_timing(device):
                 log(f"scaled_dot_product_attention disagrees by {lib_err:.3g}"
                     f"; no yardstick")
             else:
-                lib_ms = cuda_time_ms(library)
+                lib_ms = device_time_ms(library)
+        backends = sdpa_backends_ms(q, k, v, ops.flash_attention(q, k, v))
         bound_ms, bound_by, nbytes, flops = flash_bound(*shape)
-        rows.append(dict(shape=shape, ms=ms, plain_ms=plain_ms,
-                         library_ms=lib_ms, bound_ms=bound_ms,
-                         bound_by=bound_by, bytes=nbytes, flops=flops,
-                         tflops=flops / ms * 1e-9))
+        prof = TF.profile(q, k, v).double()
+        cycles = prof.mean(0).tolist()
+        rows.append(dict(shape=shape, ms=ms, wrapper_ms=wrapper_ms,
+                         plain_ms=plain_ms, library_ms=lib_ms,
+                         library_backends_ms=backends,
+                         bound_ms=bound_ms, bound_by=bound_by,
+                         bound_share=bound_ms / ms, bytes=nbytes,
+                         flops=flops, executed_tflops=1.5 * flops / ms * 1e-9,
+                         warpgroup_cycles=cycles[-1],
+                         phase_share={n: c / cycles[-1] for n, c in
+                                      zip(TF.PHASES[:-1], cycles)}))
         log(f"flash_attention {shape}: " + json.dumps(rows[-1]))
         del q, k, v
     ops.flash_attention.launches = launches   # timing launches are not counted
-    return rows
+    return rows, builds
 
 
 # ---------------------------------------------------------------------------
@@ -1395,12 +1536,19 @@ def main() -> int:
     if flash_err is not None:
         flash_timed = phase("flash_timing", lambda: flash_timing(dev))
         if flash_timed is not None:
+            flash_timed = flash_timed[0]
             for row in flash_timed:
                 log(f"flash_attention {row['shape']} bf16 causal on {card}: "
-                    f"kernel {row['ms']:.4f} ms ({row['tflops']:.2f} "
-                    f"TFLOP/s), plain {row['plain_ms']:.4f} ms, library "
-                    f"(scaled_dot_product_attention) {row['library_ms']} ms, "
-                    f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+                    f"kernel {row['ms']:.4f} ms ({row['executed_tflops']:.1f} "
+                    f"TFLOP/s executed, {row['bound_share']:.3f} of the "
+                    f"bound), wrapper back-to-back {row['wrapper_ms']:.4f} ms,"
+                    f" plain {row['plain_ms']:.4f} ms, library "
+                    f"(scaled_dot_product_attention) {row['library_ms']} ms "
+                    f"(by backend, deterministic mode off: "
+                    f"{json.dumps(row['library_backends_ms'])}), "
+                    f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}); "
+                    f"warpgroup cycles by phase "
+                    f"{json.dumps(row['phase_share'])}")
     # the rwkv6-7b phases need most of the card: drop the gpt-paper state
     main = res = model = batch = None
     torch.cuda.empty_cache()

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 into its own shared library, loaded with ``ctypes`` (no PyTorch headers:
 a build takes seconds).  Libraries go to ``build/repro_torch_kernels/`` at
-the repository root, named by a hash of the source, and are built at first
-use.  ``build_all`` starts one ``nvcc`` per source, all at once.
+the repository root, named by a hash of the source and of every
+``csrc/*.cuh`` header it can include, and are built at first use.
+``build_all`` starts one ``nvcc`` per source, all at once.
 """
 from __future__ import annotations
 
@@ -18,7 +19,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("relerr", "fp8_matmul", "flash_attention", "ssm_scan")
+SOURCES = ("relerr", "fp8_matmul", "flash_attention",
+           "flash_attention_wgmma", "ssm_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -37,8 +39,10 @@ def nvcc() -> str:
 
 
 def lib_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256()
+    for src in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
+        h.update(src.name.encode() + b"\0" + src.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_all(names=SOURCES) -> dict[str, float]:

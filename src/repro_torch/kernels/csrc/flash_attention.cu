@@ -1,41 +1,39 @@
-// Online-softmax GQA attention, forward only, for Hopper (sm_90a).
+// Online-softmax GQA attention, forward only, f32, on the FMA units of
+// Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel of repro/kernels/flash_attention.py
-// (_flash_kernel, called at flash_attention.py:110).  It computes the same
-// function: scores q.k * (1/sqrt(D)) in f32, masked entries at -1e30, a
-// running max m, denominator l and accumulator acc in f32 over kv tiles in
-// ascending order, and out = acc / max(l, 1e-30) in q's dtype.  Query head
-// h reads kv head h / (H / Hkv): KV is never repeated.  Modes: causal
-// (k <= q), swa (k <= q and k > q - window) and bidirectional.
+// (_flash_kernel, called at flash_attention.py:110) for f32 q, k and v;
+// bf16 runs on the TMA + wgmma kernel of flash_attention_wgmma.cu.  It
+// computes the same function: scores q.k * (1/sqrt(D)) in f32, masked
+// entries at -1e30, a running max m, denominator l and accumulator acc in
+// f32 over kv tiles in ascending order, and out = acc / max(l, 1e-30).
+// Query head h reads kv head h / (H / Hkv): KV is never repeated.  Modes:
+// causal (k <= q), swa (k <= q and k > q - window) and bidirectional.
 //
-// q is (B,S,H,D) and k, v are (B,S,Hkv,D), f32 or bf16, read in place
-// through their (b, s, h) strides (the head dim has stride 1 and every row
-// starts on a 4-element boundary); out is (B,S,H,D) contiguous.  No
-// transposes to (B*H, S, D), as the TPU wrapper makes.
+// q is (B,S,H,D) and k, v are (B,S,Hkv,D), f32, read in place through
+// their (b, s, h) strides (the head dim has stride 1 and every row starts
+// on a 4-element boundary); out is (B,S,H,D) contiguous.  No transposes to
+// (B*H, S, D), as the TPU wrapper makes.
 //
-// Bound.  At the main path's shape (8 x 1024, 8 heads of 64, bf16, causal)
-// the card needs 33.5 MB of q, k, v and out, 10 us at 3.35 TB/s, against
-// 8.6 GFLOP of unmasked pairs, 8.7 us on the bf16 tensor cores; at 2 x
-// 4096 the 34.4 GFLOP take 35 us.  This first kernel runs its two products
-// per tile on the f32 FMA units (67 TFLOP/s), as the TPU kernel upcasts and
-// takes f32 dots, so it is bound by its own FMA rate, far above the card's
-// bound; bf16 wgmma with TMA is the later redesign.
+// Bound and why f32 stays here.  Both products run on the f32 FMA units
+// (67 TFLOP/s), as the TPU kernel upcasts and takes f32 dots: the kernel
+// is bound by that rate.  TF32 wgmma would be faster but keeps about
+// three decimal digits, and the f32 check holds the result within 2e-5 of
+// float64; nothing on the card's check paths runs attention in f32.
 //
 // Design.  One thread block of 256 threads owns one 64-row q tile of one
 // (b, h) and loops over 64-row kv tiles, skipping the tiles the mask
-// empties for the whole q tile.  q, k and v are staged in shared memory as
-// f32 (converted while staging; 71 KB at D 64 and 119 KB at D 128, so
-// dynamic shared memory), and the 64 x 64 probabilities go through shared
-// memory between the two products.  Thread (ty, tx) of a 16 x 16 grid owns
-// rows ty + 16i and score columns tx + 16j (i, j < 4), and output columns
-// [4tx, 4tx+4) (+ 64 at D 128); a row's 16 threads sit in one half-warp,
-// so its max and sum are shuffles.  A masked entry's probability is set to
-// 0 itself: a row whose first tiles are all masked keeps l = 0 and acc = 0
-// rather than junk that a later alpha = 0 would have to wipe, so the
-// result does not rely on the tile order.  No atomics and no split over
-// kv: each output element comes from one thread in a fixed order, so two
-// launches give identical bits.
-#include <cuda_bf16.h>
+// empties for the whole q tile.  q, k and v are staged in shared memory
+// (119 KB at D 128, so dynamic shared memory), and the 64 x 64
+// probabilities go through shared memory between the two products.
+// Thread (ty, tx) of a 16 x 16 grid owns rows ty + 16i and score columns
+// tx + 16j (i, j < 4), and output columns [4tx, 4tx+4) (+ 64 at D 128); a
+// row's 16 threads sit in one half-warp, so its max and sum are shuffles.
+// A masked entry's probability is set to 0 itself: a row whose first
+// tiles are all masked keeps l = 0 and acc = 0 rather than junk that a
+// later alpha = 0 would have to wipe, so the result does not rely on the
+// tile order.  No atomics and no split over kv: each output element comes
+// from one thread in a fixed order, so two launches give identical bits.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -66,31 +64,14 @@ __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  return make_float4(__uint_as_float(u.x << 16),
-                     __uint_as_float(u.x & 0xffff0000u),
-                     __uint_as_float(u.y << 16),
-                     __uint_as_float(u.y & 0xffff0000u));
-}
-
 __device__ __forceinline__ void store4(float* p, float4 f) {
   *reinterpret_cast<float4*>(p) = f;
 }
 
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 f) {
-  const __nv_bfloat162 lo = __floats2bfloat162_rn(f.x, f.y);
-  const __nv_bfloat162 hi = __floats2bfloat162_rn(f.z, f.w);
-  uint2 u;
-  u.x = *reinterpret_cast<const uint32_t*>(&lo);
-  u.y = *reinterpret_cast<const uint32_t*>(&hi);
-  *reinterpret_cast<uint2*>(p) = u;
-}
-
-// rows [r0, r0 + 64) of one head (row stride `rs`) into tile[64][D + kPad]
-// as f32; rows at or past S read as 0
-template <typename T, int D>
-__device__ __forceinline__ void stage(float* tile, const T* base,
+// rows [r0, r0 + 64) of one head (row stride `rs`) into tile[64][D + kPad];
+// rows at or past S read as 0
+template <int D>
+__device__ __forceinline__ void stage(float* tile, const float* base,
                                       long long rs, int r0, int S) {
   constexpr int kGroups = D / 4;
   for (int g = threadIdx.x; g < kBQ * kGroups; g += kThreads) {
@@ -115,7 +96,7 @@ __device__ __forceinline__ float half_warp_sum(float x) {
   return x;
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads) flash_fwd(const Params p) {
   constexpr int LD = D + kPad;
   constexpr int NU = D / 64;       // float4 output groups per thread and row
@@ -130,11 +111,11 @@ __global__ void __launch_bounds__(kThreads) flash_fwd(const Params p) {
   const int b = bh / p.H, h = bh % p.H, hk = h / (p.H / p.Hkv);
   // the heaviest causal q tiles first, so the last wave is short
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
-  const T* qg = static_cast<const T*>(p.q) + b * p.qs[0] + h * p.qs[2];
-  const T* kg = static_cast<const T*>(p.k) + b * p.ks[0] + hk * p.ks[2];
-  const T* vg = static_cast<const T*>(p.v) + b * p.vs[0] + hk * p.vs[2];
+  const float* qg = static_cast<const float*>(p.q) + b * p.qs[0] + h * p.qs[2];
+  const float* kg = static_cast<const float*>(p.k) + b * p.ks[0] + hk * p.ks[2];
+  const float* vg = static_cast<const float*>(p.v) + b * p.vs[0] + hk * p.vs[2];
 
-  stage<T, D>(qt, qg, p.qs[1], q0, p.S);
+  stage<D>(qt, qg, p.qs[1], q0, p.S);
 
   // the kv tiles with at least one unmasked entry for some row of the tile
   const int q_last = min(q0 + kBQ, p.S) - 1;
@@ -154,8 +135,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd(const Params p) {
   for (int t = t_lo; t < t_hi; ++t) {
     const int k0 = t * kBK;
     __syncthreads();               // the previous tile's k, v and p are read
-    stage<T, D>(kt, kg, p.ks[1], k0, p.S);
-    stage<T, D>(vt, vg, p.vs[1], k0, p.S);
+    stage<D>(kt, kg, p.ks[1], k0, p.S);
+    stage<D>(vt, vg, p.vs[1], k0, p.S);
     __syncthreads();
 
     float s[4][4];
@@ -235,13 +216,13 @@ __global__ void __launch_bounds__(kThreads) flash_fwd(const Params p) {
     }
   }
 
-  T* og = static_cast<T*>(p.out);
+  float* og = static_cast<float*>(p.out);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = q0 + ty + 16 * i;
     if (r >= p.S) continue;
     const float den = fmaxf(l[i], 1e-30f);
-    T* orow = og + ((static_cast<long long>(b) * p.S + r) * p.H + h) * D;
+    float* orow = og + ((static_cast<long long>(b) * p.S + r) * p.H + h) * D;
 #pragma unroll
     for (int u = 0; u < NU; ++u)
       store4(orow + 64 * u + 4 * tx,
@@ -250,39 +231,34 @@ __global__ void __launch_bounds__(kThreads) flash_fwd(const Params p) {
   }
 }
 
-template <typename T, int D>
+template <int D>
 int launch(const Params& p, int B, cudaStream_t st) {
   constexpr int kSmem = (kBQ * (D + kPad) + 2 * kBK * (D + kPad) + kBQ * kLP)
                         * static_cast<int>(sizeof(float));
   cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+      flash_fwd<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((p.S + kBQ - 1) / kBQ, B * p.H);
-  flash_fwd<T, D><<<grid, kThreads, kSmem, st>>>(p);
+  flash_fwd<D><<<grid, kThreads, kSmem, st>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// q (B,S,H,D), k and v (B,S,Hkv,D) with the given (b, s, h) strides in
-// elements and unit stride over D; out (B,S,H,D) contiguous.  is_bf16
-// selects bf16 for all four, else f32.  D is 64 or 128 (else returns
-// cudaErrorInvalidValue); mode 0 causal, 1 swa, 2 bidirectional.  Launches
-// on `stream` and returns cudaGetLastError() (0 on success).
-extern "C" int repro_flash_attention(
+// f32 q (B,S,H,D), k and v (B,S,Hkv,D) with the given (b, s, h) strides
+// in elements and unit stride over D; out (B,S,H,D) contiguous.  D is 64
+// or 128 (else returns cudaErrorInvalidValue); mode 0 causal, 1 swa, 2
+// bidirectional.  Launches on `stream` and returns cudaGetLastError() (0
+// on success).
+extern "C" int repro_flash_attention_fma(
     const void* q, const void* k, const void* v, void* out, int B, int S,
     int H, int Hkv, int D, long long qsb, long long qss, long long qsh,
     long long ksb, long long kss, long long ksh, long long vsb, long long vss,
-    long long vsh, int mode, int window, float scale, int is_bf16,
-    void* stream) {
+    long long vsh, int mode, int window, float scale, void* stream) {
   const Params p{q, k, v, out, S, H, Hkv, {qsb, qss, qsh}, {ksb, kss, ksh},
                  {vsb, vss, vsh}, mode, window, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 64)
-    return is_bf16 ? launch<__nv_bfloat16, 64>(p, B, st)
-                   : launch<float, 64>(p, B, st);
-  if (D == 128)
-    return is_bf16 ? launch<__nv_bfloat16, 128>(p, B, st)
-                   : launch<float, 128>(p, B, st);
+  if (D == 64) return launch<64>(p, B, st);
+  if (D == 128) return launch<128>(p, B, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

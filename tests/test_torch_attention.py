@@ -23,12 +23,23 @@ JAX package on the CPU.
   Pallas call raises), so its plain trace is the one to meet;
 * (g) the long path, S 4096 with S x vocab > 2^26: blockwise attention and
   chunked CE on both sides, the port's reference trace and its flash
-  candidate's trace judged by the reference's checker.
+  candidate's trace judged by the reference's checker;
+* (h) the launch path without a card: bf16 goes to the TMA + wgmma entry
+  point and f32 to the FMA one (``_lib`` replaced by a fake), a failed
+  launch raises with no second call, bf16 operands must meet TMA's 16-byte
+  rules, and a library's name hashes the headers it can include;
+* (i) why the bf16 kernel splits p: a CPU emulation of its arithmetic
+  (bf16 q, k, v; f32 scores and online softmax over kv tiles of 64; p v as
+  p_hi v + p_lo v, both bf16, summed in f32) stays within the card check's
+  bound, half a bf16 ulp of float64 plus 2e-5, on the sweep of
+  ``tests/test_kernels.py`` in every mode, and the same emulation with one
+  bf16 p exceeds it.
 
-The CUDA kernel runs only on the card (``cuda`` marker).
+The CUDA kernels run only on the card (``cuda`` marker).
 """
 import dataclasses
 import functools
+import math
 
 import numpy as np
 import pytest
@@ -54,6 +65,7 @@ from repro_torch.configs.base import get_config as torch_get_config  # noqa: E40
 from repro_torch.core.collector import (SECTION_FIELDS, named_params,  # noqa: E402
                                         trace_fn_step, trace_train_step)
 from repro_torch.interop import params_from_jax  # noqa: E402
+from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import flash_attention as TF  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.models import attention as TA  # noqa: E402
@@ -333,6 +345,135 @@ def test_long_path_passes_reference_checker(monkeypatch):
         rep = jax_compare(jref, port, thr)
         assert rep.passed and not rep.missing, rep.summary()
         assert port.loss == pytest.approx(jref.loss, rel=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# (h) the launch path without a card
+# ---------------------------------------------------------------------------
+
+def test_kernel_routes_by_dtype_and_never_falls_back(monkeypatch):
+    calls, rc = [], [0]
+
+    def fake_lib(source, symbol):
+        def fn(*args):
+            calls.append((source, symbol, args))
+            return rc[0]
+        return fn
+    monkeypatch.setattr(TF, "_lib", fake_lib)
+    before = TF.flash_attention.launches
+    for dtype, symbol in ((torch.bfloat16, "repro_flash_attention_wgmma"),
+                          (torch.float32, "repro_flash_attention_fma")):
+        q, k, v = _t(_qkv(2, 64, 4, 2, 64, seed=7), dtype)
+        out = torch.empty_like(q)
+        TF._run(q, k, v, out, "swa", 16, stream=0)
+        source, got, args = calls[-1]
+        assert (source, got) == TF.ENTRY_POINTS[dtype]
+        assert got == symbol
+        assert args[:4] == (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                            out.data_ptr())
+        assert args[4:9] == (2, 64, 4, 2, 64)
+        assert args[9:18] == (*q.stride()[:3], *k.stride()[:3],
+                              *v.stride()[:3])
+        assert args[18:] == (1, 16, pytest.approx(0.125), 0)
+    assert len(calls) == 2
+    assert TF.flash_attention.launches == before + 2
+    rc[0] = 719                                   # a failed launch
+    q, k, v = _t(_qkv(1, 64, 2, 2, 64, seed=8), torch.bfloat16)
+    with pytest.raises(RuntimeError, match="wgmma failed: CUDA error 719"):
+        TF._run(q, k, v, torch.empty_like(q), "causal", 0, stream=0)
+    assert len(calls) == 3                        # no second attempt
+    assert TF.flash_attention.launches == before + 2
+
+
+def test_bf16_operands_meet_tma_rules():
+    q, k, v = _t(_qkv(1, 64, 2, 2, 64, seed=9), torch.bfloat16)
+    flat = torch.zeros(q.numel() + 8, dtype=torch.bfloat16)
+    shifted = flat[4:4 + q.numel()].view(q.shape)  # 8 bytes past 16
+    assert shifted.data_ptr() % 16 == 8 and shifted.is_contiguous()
+    with pytest.raises(ValueError, match="16-byte aligned base"):
+        TF.check_kernel_operands(shifted, k, v)
+    rows = torch.zeros(1, 64, 2, 68, dtype=torch.bfloat16)[..., :64]
+    assert rows.stride()[2] % 4 == 0              # the f32 rule holds
+    with pytest.raises(ValueError, match="8-element"):
+        TF.check_kernel_operands(q, rows, v)
+    # what passes TMA's rules goes on to the device check
+    with pytest.raises(ValueError, match="CUDA device"):
+        TF.check_kernel_operands(q, k, v)
+
+
+def test_library_name_hashes_the_headers(tmp_path, monkeypatch):
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    first = build.lib_path("k")
+    (tmp_path / "h.cuh").write_text("// two\n")
+    second = build.lib_path("k")
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n// edited\n')
+    third = build.lib_path("k")
+    assert len({first, second, third}) == 3
+    assert first.parent == build.BUILD_DIR and first.name.startswith("libk-")
+
+
+# ---------------------------------------------------------------------------
+# (i) the bf16 kernel's arithmetic, emulated
+# ---------------------------------------------------------------------------
+
+def _emulate_bf16_kernel(q, k, v, mode, window, split, tile=64):
+    """The bf16 kernel's arithmetic in f32 on the CPU: scores of bf16 q, k
+    in f32, an online softmax over kv tiles of ``tile`` with masked p set
+    to 0, p v from bf16 p (``split``: p_hi + p_lo) summed in f32, out =
+    acc / max(l, 1e-30) rounded to bf16."""
+    B, S, H, D = q.shape
+    G = H // k.shape[2]
+    qh = q.float().permute(0, 2, 1, 3)
+    kh = k.float().repeat_interleave(G, 2).permute(0, 2, 1, 3)
+    vh = v.float().repeat_interleave(G, 2).permute(0, 2, 1, 3)
+    m = torch.full((B, H, S), -1e30)
+    l = torch.zeros(B, H, S)
+    acc = torch.zeros(B, H, S, D)
+    qp = torch.arange(S)[:, None]
+    for k0 in range(0, S, tile):
+        kp = torch.arange(k0, k0 + tile)[None, :]
+        keep = torch.ones(S, tile, dtype=torch.bool)
+        if mode != "bidirectional":
+            keep = kp <= qp
+        if mode == "swa":
+            keep = keep & (kp > qp - window)
+        s = (qh @ kh[:, :, k0:k0 + tile].transpose(-1, -2)) / math.sqrt(D)
+        s = torch.where(keep, s, torch.tensor(-1e30))
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.where(keep, torch.exp(s - m_new[..., None]),
+                        torch.tensor(0.0))
+        l = l * alpha + p.sum(-1)
+        vt = vh[:, :, k0:k0 + tile]
+        hi = p.bfloat16().float()
+        pv = hi @ vt
+        if split:
+            pv = pv + (p - hi).bfloat16().float() @ vt
+        acc = acc * alpha[..., None] + pv
+        m = m_new
+    out = acc / l.clamp_min(1e-30)[..., None]
+    return out.bfloat16().permute(0, 2, 1, 3)
+
+
+@pytest.mark.parametrize("B,S,H,Hkv,D", [
+    (1, 128, 2, 2, 64), (2, 256, 4, 2, 64), (1, 256, 8, 2, 128),
+    (1, 128, 4, 1, 64),
+])
+@pytest.mark.parametrize("mode,window", MODES)
+def test_split_p_meets_the_card_bound_and_one_bf16_p_does_not(
+        B, S, H, Hkv, D, mode, window):
+    q, k, v = _t(_qkv(B, S, H, Hkv, D, seed=B * S + H + D), torch.bfloat16)
+    ref = TA.attention_ref(q.double(), k.double(), v.double(), mode=mode,
+                           window=window)
+    bound = 2.0 ** -8 * ref.abs() + 2e-5          # chip_smoke.py, phase 11
+    split = _emulate_bf16_kernel(q, k, v, mode, window, split=True)
+    single = _emulate_bf16_kernel(q, k, v, mode, window, split=False)
+    assert split.dtype == torch.bfloat16 and split.shape == q.shape
+    assert bool(((split.double() - ref).abs() <= bound).all())
+    over = (single.double() - ref).abs() > bound
+    assert int(over.sum()) > over.numel() // 100
 
 
 @pytest.mark.cuda
