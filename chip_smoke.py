@@ -110,9 +110,15 @@ prints no result line):
              the scale of k up to its group norm's epsilon, so at bf16
              thresholds only that weight's gradients and update may flag,
              and the checker then names its linear, ``.key``;
-19. ssm_timing — the kernel per launch (CUDA events) at the rwkv6 and
-             zamba2 shapes, beside its plain version and the bound (no
-             single PyTorch call computes it).
+19. ssm_timing — the kernel per launch at the rwkv6 and zamba2 shapes
+             (CUDA events, the card held busy, without deterministic
+             mode's fill of new buffers; with it, and back to back,
+             beside), its plain version and the bound (no single PyTorch
+             call computes it); the kernel's share of the bound, its
+             executed TF32 rate and this design's TF32 floor; the
+             registers, spills and shared memory of each build; each
+             pass's time and the share of a block's SM cycles each phase
+             takes (one launch of the profiled build, ``clock64``).
 
 Every kernel's launch count is set to 0 just before each path (phases 4,
 8, 12, 13, 14, 17 and 18) and read just after it.  At the end come the card's name and power
@@ -153,6 +159,7 @@ FP8_REPLACES = {"fp8_matmul": "src/repro/kernels/fp8_matmul.py:56",
 FP8_MAIN_SHAPES = (((8192, 512, 2048), 24), ((8192, 2048, 512), 12))
 FP8_LAUNCHES_PER_RUN = 36
 BF16_FLOPS = 989e12                # H100 SXM bf16 tensor cores, dense
+TF32_FLOPS = 495e12                # H100 SXM tf32 tensor cores, dense
 FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu"
 FLASH_REPLACES = "src/repro/kernels/flash_attention.py:110"
 FLASH_LAUNCHES_PER_RUN = 12        # one per layer of full-width gpt-paper
@@ -1464,12 +1471,66 @@ def ssm_bound(shape, elem_bytes=2):
             "bytes" if bytes_ms >= ops_ms else "operations", nbytes, flops)
 
 
+def ssm_work(shape, elem_bytes=2):
+    """(TF32 flops, bytes) this kernel's design executes and moves for one
+    scan: each product at its padded tile sizes (64-row tiles, k8 steps,
+    dv to 64 or 128), an f32 operand split in two and a product of two
+    split operands taken three times, one with an exact operand (v; q and
+    k in the scalar branch) twice, the all-masked s-tile skipped; the
+    state pass reads k, v and log_w and writes the scratch, the fold
+    reads and writes it, the out pass reads q, k, v, log_w and the scratch
+    and writes y."""
+    B, S, H, dk, dv, C, scalar, _ = shape
+    n, nt = S // C, -(-C // 64)
+    dvp, dkp, cp = (64 if dv <= 64 else 128), -(-dk // 8) * 8, -(-C // 8) * 8
+    exact_qk = scalar and elem_bytes == 2
+    v_passes = 2 if elem_bytes == 2 else 3
+    tiles = nt * (nt + 1) // 2
+    per_chunk = (2 * 64 * -(-dk // 64) * cp * dvp * v_passes        # state
+                 + tiles * 2 * 64 * 64 * dkp * (1 if exact_qk else 3)  # A
+                 + 2 * 64 * nt * dkp * dvp * (2 if exact_qk else 3)   # q S
+                 + tiles * 2 * 64 * 64 * dvp * v_passes)              # A v
+    dw = 1 if scalar else dk
+    rows = B * S * H
+    k, v, q = (elem_bytes * rows * d for d in (dk, dv, dk))
+    lw, y = 4 * rows * dw, 4 * rows * dv
+    scratch = 4 * B * H * n * (dk * -(-dv // 4) * 4 + dw)
+    nbytes = (k + v + lw + scratch) + 2 * scratch \
+        + (q + k + v + lw + scratch + y) + 4 * B * H * dk * dv
+    return B * H * n * per_chunk, nbytes
+
+
+def ssm_builds():
+    """Registers, stack and spills of each build of ``ssm_scan.cu``
+    (``ptxas -v``), with the dynamic shared memory of the state and out
+    passes' blocks at the main path's operands (bf16, chunk 128, dv 64)."""
+    import re
+    import torch
+    from repro_torch.kernels import ssm_scan as K
+    builds = ptxas_summary("ssm_scan")
+    for name, info in builds.items():
+        # gla_state<T, SCALAR, DVP>, gla_out<T, SCALAR, DVP, WIDE>
+        m = re.search(r"gla_(state|out)I(13__nv_bfloat16|f)Lb([01])ELi(\d+)E",
+                      name)
+        if m is None:                     # the fold
+            info["dynamic_smem_bytes"] = 0
+            continue
+        dtype = torch.bfloat16 if m[2] != "f" else torch.float32
+        info["dynamic_smem_bytes"] = K.shared_memory(
+            dtype, m[3] == "1", int(m[4]), 128)[m[1]]
+    return builds
+
+
 def ssm_timing(device):
-    """Per launch (CUDA events) at the rwkv6 and zamba2 full-width shapes:
-    the kernel and its plain version (f32), and the share of a block's SM
-    cycles each phase of the kernel takes (one profiled launch).  No single
-    PyTorch call computes this function, so there is no library
-    yardstick."""
+    """Per launch at the rwkv6 and zamba2 full-width shapes: the kernel
+    with the card held busy (``device_time_ms``) without deterministic
+    mode's fill of new buffers and with it (as the main path runs), and
+    back to back (``cuda_time_ms``); its plain version (f32); beside the
+    bound, the kernel's share of it, its executed TF32 rate and this
+    design's TF32 floor; each pass's time (CUDA events) and
+    the share of a block's SM cycles each phase takes, from one launch of
+    the profiled build.  No single PyTorch call computes this function, so
+    there is no library yardstick."""
     import torch
     from repro_torch.kernels import ssm_scan as K
 
@@ -1478,31 +1539,48 @@ def ssm_timing(device):
     for shape in (SSM_RWKV, SSM_ZAMBA):
         q, k, v, lw = ssm_inputs(shape, torch.bfloat16, device, seed=0)
         chunk, excl = shape[5], shape[7]
-        ms = cuda_time_ms(lambda: K.gla_scan(q, k, v, lw, chunk=chunk,
-                                             exclusive=excl))
+
+        def call():
+            return K.gla_scan(q, k, v, lw, chunk=chunk, exclusive=excl)
+        with uninitialized_fill(False):
+            ms = device_time_ms(call)
+        with uninitialized_fill(True):
+            filled_ms = device_time_ms(call)
+            wrapper_ms = cuda_time_ms(call)
         plain_ms = cuda_time_ms(lambda: K.gla_scan_ref(
             q, k, v, lw, chunk=chunk, exclusive=excl), reps=5, warmup=1)
         bound_ms, bound_by, nbytes, flops = ssm_bound(shape)
-        # where a block's time goes: SM cycles per phase, mean over blocks
-        prof = torch.zeros((shape[0] * shape[2] * -(-shape[4] // 8),
-                            len(K.PHASES)), dtype=torch.int64, device=device)
-        K._launch(q, k, v, lw, chunk, excl, prof=prof)
-        prof = prof[prof[:, -1] > 0]
-        blocks = prof.shape[0]
-        cycles = prof.double().mean(0).tolist()
+        tf32_flops, design_bytes = ssm_work(shape)
+        _, _, cycles, pass_ms = K.profile(q, k, v, lw, chunk, excl)
+        phases = {}
+        for name, c in cycles.items():
+            mean = c.double().mean(0).tolist()
+            names = K.PHASES[name]
+            total = mean[names.index("total")]
+            phases[name] = dict(blocks=c.shape[0], block_cycles=total,
+                                share={n: m / total for n, m in
+                                       zip(names, mean) if n != "total"})
+        passes = sum(pass_ms.values())
         rows.append(dict(shape=shape[:6], decay="scalar" if shape[6]
                          else "per-channel", exclusive=excl, ms=ms,
+                         filled_ms=filled_ms, wrapper_ms=wrapper_ms,
                          plain_ms=plain_ms, library_ms=None,
-                         bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
-                         flops=flops, tflops=flops / ms * 1e-9,
-                         gbytes_per_s=nbytes / ms * 1e-6, blocks=blocks,
-                         block_cycles=cycles[-1],
-                         phase_share={n: c / cycles[-1] for n, c in
-                                      zip(K.PHASES[:-1], cycles)}))
+                         bound_ms=bound_ms, bound_by=bound_by,
+                         bound_share=bound_ms / ms, bytes=nbytes,
+                         flops=flops, tf32_flops=tf32_flops,
+                         executed_tflops=tf32_flops / ms * 1e-9,
+                         tf32_floor_ms=tf32_flops / TF32_FLOPS * 1e3,
+                         design_bytes=design_bytes,
+                         design_bytes_ms=design_bytes / HBM_BYTES_PER_S * 1e3,
+                         gbytes_per_s=nbytes / ms * 1e-6,
+                         pass_ms=pass_ms,
+                         pass_share={n: t / passes for n, t in
+                                     pass_ms.items()},
+                         phases=phases))
         log(f"gla_scan {shape[:6]}: " + json.dumps(rows[-1]))
         del q, k, v, lw
     K.gla_scan.launches = launches        # timing launches are not counted
-    return rows
+    return rows, ssm_builds()
 
 
 # ---------------------------------------------------------------------------
@@ -1666,12 +1744,20 @@ def main() -> int:
     if ssm_err is not None:
         ssm_timed = phase("ssm_timing", lambda: ssm_timing(dev))
         if ssm_timed is not None:
+            ssm_timed, ssm_built = ssm_timed
+            for name, info in ssm_built.items():
+                log(f"ssm_scan build {name}: {json.dumps(info)}")
             for row in ssm_timed:
                 log(f"gla_scan {row['shape']} {row['decay']} on {card}: "
-                    f"kernel {row['ms']:.4f} ms ({row['tflops']:.2f} TFLOP/s,"
-                    f" {row['gbytes_per_s']:.1f} GB/s), plain "
-                    f"{row['plain_ms']:.4f} ms, library: no single call, "
-                    f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+                    f"kernel {row['ms']:.4f} ms ({row['executed_tflops']:.1f}"
+                    f" TFLOP/s TF32 executed, {row['bound_share']:.3f} of the"
+                    f" bound, this design's TF32 floor "
+                    f"{row['tf32_floor_ms']:.4f} ms), with the fill "
+                    f"{row['filled_ms']:.4f} ms, back to back "
+                    f"{row['wrapper_ms']:.4f} ms, plain {row['plain_ms']:.4f}"
+                    f" ms, library: no single call, bound "
+                    f"{row['bound_ms']:.4f} ms ({row['bound_by']}); passes "
+                    f"{json.dumps(row['pass_ms'])}")
     if failures:
         log(f"FAILED phases: {failures}")
         return 1

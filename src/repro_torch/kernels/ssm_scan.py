@@ -12,7 +12,11 @@ On CUDA tensors the forward launches the hand-written kernel
 ``gla_scan_ref`` (the model's chunked math, ``models.ssm.chunk_scan``).
 The kernel reads the tensors in place through their strides (the last dim
 contiguous); q, k and v share f32 or bf16, log_w is f32; dk, dv and the
-chunk are at most 128.  ``gla_scan.launches`` counts kernel launches.
+chunk are at most 128.  It runs in three passes on the stream (each
+chunk's k_dec^T v; the fold over chunks; each chunk's y, on the tensor
+cores in split TF32), through scratch the wrapper allocates
+(``scratch_shapes``); one wrapper call counts as one launch in
+``gla_scan.launches``.
 
 The TPU kernel has no backward.  The backward here is not a kernel: it is
 the gradient of the plain chunked math, recomputed from the saved q, k, v
@@ -28,17 +32,27 @@ from repro_torch.models.ssm import chunk_scan
 
 MAX_DIM = 128                   # dk, dv and chunk the kernel takes
 DTYPES = (torch.float32, torch.bfloat16)
-# what the kernel's profile (``_launch(prof=...)``) times, in SM cycles
-PHASES = ("stage", "scan", "decay", "A", "y", "state", "total")
+# what the profiled build (``profile``) times in each pass, in SM cycles of
+# a block (csrc/ssm_scan.cu, ``StatePhase`` and ``OutPhase``); the fold
+# times its blocks whole
+PASSES = ("state", "fold", "out")
+PHASES = {"state": ("stage", "mma", "store", "total", "stage_k",
+                    "stage_v"),
+          "fold": ("total",),
+          "out": ("stage", "qk", "v", "y", "store", "total", "stage_qk",
+                  "stage_s")}
+PROFILE_SLOTS = 8               # int64 per block in the profile
+FOLD_THREADS = 256
 
-_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
-             + [ctypes.c_longlong] * 12 + [ctypes.c_void_p] * 2)
+_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+             + [ctypes.c_longlong] * 12 + [ctypes.c_void_p])
+_PROFILE_ARGTYPES = _ARGTYPES[:-1] + [ctypes.c_void_p] * 3
 
 
-def _lib():
+def _lib(symbol="repro_gla_scan", argtypes=_ARGTYPES):
     from repro_torch.kernels import build
-    fn = build.load("ssm_scan").repro_gla_scan
-    fn.argtypes = _ARGTYPES
+    fn = getattr(build.load("ssm_scan"), symbol)
+    fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn
 
@@ -95,8 +109,9 @@ def _rows_16_byte(t):
 
 
 def staging_vec(q, k, v, log_w) -> bool:
-    """Whether the kernel may stage with 16-byte loads (the column slices
-    of v a block owns are 8 wide or a multiple of 8, or all of v)."""
+    """Whether the kernel may stage with 16-byte loads: every row of q, k,
+    v (and of a per-channel log_w) starts on 16 bytes and is whole 16-byte
+    pieces."""
     return (all(_rows_16_byte(t) for t in (q, k, v))
             and (log_w.shape[3] == 1 or _rows_16_byte(log_w)))
 
@@ -108,30 +123,100 @@ def gla_scan_ref(q, k, v, log_w, chunk=128, exclusive=False):
     return chunk_scan(q, k, v, log_w, chunk, exclusive=exclusive)
 
 
-def _launch(q, k, v, log_w, chunk, exclusive, prof=None):
-    """Launches the kernel.  ``prof``, a zeroed int64 CUDA tensor of
-    (B * H * ceil(dv / 8), len(PHASES)), takes each block's SM cycles per
-    phase in its first rows (one per block)."""
-    check_kernel_operands(q, k, v, log_w, chunk)
+def scratch_shapes(B, S, H, dk, dv, dw, chunk):
+    """Shapes of the kernel's f32 scratch, chunk-major as its blocks run:
+    each chunk's k_dec^T v, then the state it starts from, (S / chunk, B,
+    H, dk, dv rounded up to 4); and exp(L_C), (S / chunk, B, H, dw)."""
+    n = S // chunk
+    return (n, B, H, dk, -(-dv // 4) * 4), (n, B, H, dw)
+
+
+def profile_blocks(B, S, H, dk, dv, chunk):
+    """Blocks of each pass, in the profile's order (``PASSES``)."""
+    chunks = B * H * (S // chunk)
+    return {"state": chunks * -(-dk // 64),
+            "fold": -(-B * H * dk * dv // FOLD_THREADS), "out": chunks}
+
+
+def _flags(q, k, v, log_w, exclusive):
+    return (int(exclusive) | (int(q.dtype == torch.bfloat16) << 1)
+            | (int(staging_vec(q, k, v, log_w)) << 2))
+
+
+def _args(q, k, v, log_w, chunk, exclusive, y, s_fin, kv, decay):
     B, S, H, dk = q.shape
-    dv = v.shape[3]
-    dev = q.device
-    y = torch.empty((B, S, H, dv), dtype=torch.float32, device=dev)
-    s_fin = torch.empty((B, H, dk, dv), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        rc = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                    log_w.data_ptr(), y.data_ptr(), s_fin.data_ptr(),
-                    B, S, H, dk, dv, log_w.shape[3], chunk,
-                    int(exclusive) | (int(q.dtype == torch.bfloat16) << 1)
-                    | (int(staging_vec(q, k, v, log_w)) << 2),
-                    *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                    *log_w.stride()[:3],
-                    None if prof is None else prof.data_ptr(),
-                    torch.cuda.current_stream(dev).cuda_stream)
+    return (q.data_ptr(), k.data_ptr(), v.data_ptr(), log_w.data_ptr(),
+            y.data_ptr(), s_fin.data_ptr(), kv.data_ptr(), decay.data_ptr(),
+            B, S, H, dk, v.shape[3], log_w.shape[3], chunk,
+            _flags(q, k, v, log_w, exclusive), *q.stride()[:3],
+            *k.stride()[:3], *v.stride()[:3], *log_w.stride()[:3])
+
+
+def _outputs(q, v, log_w, chunk):
+    B, S, H, dk = q.shape
+    dv, dev = v.shape[3], q.device
+    kv_shape, decay_shape = scratch_shapes(B, S, H, dk, dv, log_w.shape[3],
+                                           chunk)
+    return tuple(torch.empty(shape, dtype=torch.float32, device=dev)
+                 for shape in ((B, S, H, dv), (B, H, dk, dv), kv_shape,
+                               decay_shape))
+
+
+def _run(q, k, v, log_w, chunk, exclusive, y, s_fin, kv, decay, stream):
+    """One launch (the three passes) on ``stream``; raises on a non-zero
+    return code, with no second attempt."""
+    rc = _lib()(*_args(q, k, v, log_w, chunk, exclusive, y, s_fin, kv,
+                       decay), stream)
     if rc != 0:
         raise RuntimeError(f"gla_scan kernel launch failed: CUDA error {rc}")
     gla_scan.launches += 1
+
+
+def _launch(q, k, v, log_w, chunk, exclusive):
+    check_kernel_operands(q, k, v, log_w, chunk)
+    y, s_fin, kv, decay = _outputs(q, v, log_w, chunk)
+    with torch.cuda.device(q.device):
+        _run(q, k, v, log_w, chunk, exclusive, y, s_fin, kv, decay,
+             torch.cuda.current_stream(q.device).cuda_stream)
     return y, s_fin
+
+
+def profile(q, k, v, log_w, chunk=128, exclusive=False):
+    """One launch of the profiled build (not counted in
+    ``gla_scan.launches``; it synchronizes).  Returns (y, s_final, cycles,
+    pass_ms): ``cycles`` maps each pass to an int64 tensor of (blocks,
+    len(PHASES[pass])) SM cycles of each block's phases, ``pass_ms`` each
+    pass's time in ms (CUDA events)."""
+    chunk = check_contract(q, k, v, log_w, chunk)
+    check_kernel_operands(q, k, v, log_w, chunk)
+    B, S, H, dk = q.shape
+    blocks = profile_blocks(B, S, H, dk, v.shape[3], chunk)
+    prof = torch.zeros((sum(blocks.values()), PROFILE_SLOTS),
+                       dtype=torch.int64, device=q.device)
+    pass_ms = torch.zeros(len(PASSES), dtype=torch.float32)
+    y, s_fin, kv, decay = _outputs(q, v, log_w, chunk)
+    with torch.cuda.device(q.device):
+        rc = _lib("repro_gla_scan_profile", _PROFILE_ARGTYPES)(
+            *_args(q, k, v, log_w, chunk, exclusive, y, s_fin, kv, decay),
+            prof.data_ptr(), pass_ms.data_ptr(),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"profiled gla_scan kernel failed: CUDA error "
+                           f"{rc}")
+    cycles, at = {}, 0
+    for name in PASSES:
+        n = blocks[name]
+        cycles[name] = prof[at:at + n, :len(PHASES[name])]
+        at += n
+    return y, s_fin, cycles, dict(zip(PASSES, pass_ms.tolist()))
+
+
+def shared_memory(dtype, scalar, dv, chunk):
+    """Dynamic shared memory of a state-pass and an out-pass block, in
+    bytes."""
+    fn = _lib("repro_gla_scan_smem", [ctypes.c_int] * 5)
+    return {name: fn(pas, int(dtype == torch.bfloat16), int(scalar), dv,
+                     chunk) for name, pas in (("state", 1), ("out", 3))}
 
 
 class _GLAScan(torch.autograd.Function):

@@ -512,7 +512,8 @@ def _card_global_operands(M, K, N):
 
 def _misses(got, want, rtol=1e-5, atol=1e-2):
     """Elements of ``got`` outside ``assert_close``'s tolerance of ``want``
-    (the card test's global tolerance)."""
+    (the tolerance the card test's global half once held the kernel to,
+    against the plain version)."""
     got, want = got.double(), want.double()
     return int(((got - want).abs() > atol + rtol * want.abs()).sum())
 
@@ -520,8 +521,9 @@ def _misses(got, want, rtol=1e-5, atol=1e-2):
 @pytest.mark.parametrize("M,K,N", CARD_GLOBAL,
                          ids=["x".join(map(str, s)) for s in CARD_GLOBAL])
 def test_card_global_tolerance_is_finer_than_f32_rounding(M, K, N):
-    """The card test holds the global kernel to the plain version, an f32
-    product, at atol 1e-2.  Its operands are unscaled e4m3 values whose
+    """Why the card test's global half is held to phase 7's bound: it once
+    held the global kernel to the plain version, an f32 product, at atol
+    1e-2.  Its operands are unscaled e4m3 values whose
     sums reach some 1e6, where f32's spacing is 0.0625 or more, so two f32
     sums in different orders miss that tolerance on some elements whose
     result cancels to near zero: the sequential order (each exact product
@@ -573,8 +575,12 @@ def test_kernels_match_plain_versions_on_the_card(recipe, M, K, N):
     g = tops.fp8_matmul(qx, qw)
     assert torch.equal(g, tops.fp8_matmul(qx, qw))
     assert TK.fp8_matmul.launches == before + 2
-    torch.testing.assert_close(g, TK.fp8_matmul_ref(qx, qw), rtol=1e-5,
-                               atol=1e-2)
+    # the unscaled sums reach some 1e6, where no f32 order meets a fixed
+    # atol (test_card_global_tolerance_is_finer_than_f32_rounding): both
+    # versions are held to phase 7's bound against float64
+    xd, wd = qx.double(), qw.double()
+    assert _phase7_over(g, xd, wd) <= 1.0
+    assert _phase7_over(TK.fp8_matmul_ref(qx, qw), xd, wd) <= 1.0
 
 
 @pytest.mark.cuda

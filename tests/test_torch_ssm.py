@@ -22,6 +22,14 @@ handed to both packages; on the CPU the port takes its plain versions.
 * (f) with ``layers.1.time_mix.key.w`` doubled, the port's harness gives
   the reference harness's verdict and localized module.
 
+* (g) the launch path without a card: one wrapper call is one launch of
+  the three passes, with the scratch it allocates, and a failed launch
+  raises with no second attempt;
+* (h) the kernel's arithmetic, emulated: split TF32 operands in the
+  chunk-parallel order meet ``chip_smoke.py`` phase 16's bounds on the
+  sweep (f32) and on full-length rwkv6-like and zamba2-like heads (bf16),
+  and one unsplit TF32 pass does not.
+
 The CUDA kernel runs only on the card (``cuda`` marker).
 """
 import dataclasses
@@ -385,3 +393,207 @@ def test_kernel_matches_plain_version_on_the_card(scalar, excl):
     py, ps = TK.gla_scan_ref(q, k, v, lw, exclusive=excl)
     torch.testing.assert_close(y1, py, rtol=0, atol=5e-4)
     torch.testing.assert_close(s1, ps, rtol=0, atol=5e-4)
+
+
+# ---------------------------------------------------------------------------
+# (g) the launch path without a card
+# ---------------------------------------------------------------------------
+
+def test_scratch_and_profile_layout():
+    kv, decay = TK.scratch_shapes(2, 4096, 64, 64, 60, 64, 128)
+    assert kv == (32, 2, 64, 64, 60) and decay == (32, 2, 64, 64)
+    assert TK.scratch_shapes(1, 256, 2, 8, 30, 1, 64) == ((4, 1, 2, 8, 32),
+                                                         (4, 1, 2, 1))
+    assert TK.profile_blocks(2, 4096, 112, 64, 64, 128) == {
+        "state": 7168, "fold": 3584, "out": 7168}
+    # a state block per 64 channels of dk
+    assert TK.profile_blocks(1, 256, 2, 100, 72, 128)["state"] == 2 * 2 * 2
+    assert set(TK.PHASES) == set(TK.PASSES)
+    assert all(len(ph) <= TK.PROFILE_SLOTS for ph in TK.PHASES.values())
+
+
+def test_kernel_launch_never_falls_back(monkeypatch):
+    calls, rc = [], [0]
+
+    def fake_lib(*_):
+        def fn(*args):
+            calls.append(args)
+            return rc[0]
+        return fn
+    monkeypatch.setattr(TK, "_lib", fake_lib)
+    q, k, v, lw = _t(_inputs(1, 64, 2, 16, 8, False, seed=19))
+    q, k, v = (t.bfloat16() for t in (q, k, v))
+    outs = TK._outputs(q, v, lw, 32)
+    assert [tuple(t.shape) for t in outs] == [
+        (1, 64, 2, 8), (1, 2, 16, 8), (2, 1, 2, 16, 8), (2, 1, 2, 16)]
+    before = TK.gla_scan.launches
+    TK._run(q, k, v, lw, 32, True, *outs, stream=0)
+    assert calls == [(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                      lw.data_ptr(), *(t.data_ptr() for t in outs),
+                      1, 64, 2, 16, 8, 16, 32, 0b111, *q.stride()[:3],
+                      *k.stride()[:3], *v.stride()[:3], *lw.stride()[:3], 0)]
+    assert TK.gla_scan.launches == before + 1
+    rc[0] = 719                                   # a failed launch
+    with pytest.raises(RuntimeError, match="CUDA error 719"):
+        TK._run(q, k, v, lw, 32, False, *outs, stream=0)
+    assert len(calls) == 2                        # no second attempt
+    assert calls[-1][15] == 0b110                 # inclusive
+    assert TK.gla_scan.launches == before + 1
+
+
+# ---------------------------------------------------------------------------
+# (h) the kernel's arithmetic, emulated
+# ---------------------------------------------------------------------------
+
+SWEEP_TOL = 5e-4        # chip_smoke.py SSM_SWEEP_TOL: absolute, f32 sweep
+NORM_TOL = 1e-5         # chip_smoke.py SSM_NORM_TOL: normwise, bf16 shapes
+
+
+def _tf32(x):
+    """``cvt.rna.tf32.f32``: x rounded to 10 fraction bits, ties away."""
+    b = x.contiguous().view(torch.int32)
+    mag = ((b & 0x7fffffff) + 0x1000) & ~0x1fff
+    return (mag | (b & -2 ** 31)).view(torch.float32)
+
+
+def _read(x):
+    """What the tensor cores read of an f32 operand: its top 19 bits."""
+    return (x.contiguous().view(torch.int32) & ~0x1fff).view(torch.float32)
+
+
+def _mma(acc, a, b, a_split, b_split, split=True):
+    """acc (f32) += a @ b as the kernel's TF32 wgmmas: an operand that is
+    not exact is split, x = hi + lo with hi = tf32(x); per k8 step the
+    products hi.hi, hi.lo and lo.hi, each step's 8 exact products summed
+    and rounded to f32, join the f32 accumulator in turn.  ``split=False``:
+    one TF32 pass, each operand rounded once."""
+    def parts(x, s):
+        if not split:
+            return [_tf32(x)]
+        if not s:
+            return [x]
+        hi = _tf32(x)
+        return [hi, _read(x - hi)]
+    A, B = parts(a, a_split), parts(b, b_split)
+    pairs = [(A[0], B[0])] + [(A[0], lo) for lo in B[1:]] + \
+        [(lo, B[0]) for lo in A[1:]]
+    for k0 in range(0, a.shape[-1], 8):
+        for x, y in pairs:
+            acc = acc + (x[..., k0:k0 + 8].double()
+                         @ y[..., k0:k0 + 8, :].double()).float()
+    return acc
+
+
+def _emulate_kernel(q, k, v, lw, chunk, exclusive, split=True):
+    """``csrc/ssm_scan.cu``'s arithmetic on the CPU: L scanned in float64
+    (scalar decay; the exponents' differences too) or f32 (per-channel),
+    each exponent rounded to f32 for its exponential; the state pass's
+    k_dec^T v, the f32 fold, then the out pass's
+    A = q_t k_t^T (or (q k^T) D), y = q_t S + A v, all products as
+    ``_mma``.  q and k in the scalar branch and v are exact in TF32 when
+    bf16, and then not split."""
+    B, S, H, dk = q.shape
+    dv, C = v.shape[3], chunk
+    n = S // C
+    scalar = lw.shape[3] == 1
+    qk_split = not (scalar and q.dtype == torch.bfloat16)
+    v_split = v.dtype != torch.bfloat16
+
+    def split_chunks(x):                      # (B,S,H,d) -> (B,H,n,C,d)
+        return x.float().reshape(B, n, C, H, -1).permute(0, 3, 1, 2, 4)
+    qc, kc, vc, wc = map(split_chunks, (q, k, v, lw))
+    # the kernel scans a scalar decay in float64, a per-channel one in f32
+    L = torch.cumsum(wc.double() if scalar else wc, dim=3)
+    Lq = L - wc if exclusive else L
+    Lc = L[..., -1:, :]
+
+    def exp(x):                                    # the exponent in f32
+        return torch.exp(x.float())
+    kv = _mma(torch.zeros(B, H, n, dk, dv),
+              (kc * exp(Lc - L)).transpose(-1, -2), vc, True, v_split,
+              split)
+    decay = exp(Lc[..., 0, :])[..., None]
+    s = torch.zeros(B, H, dk, dv)
+    starts = []
+    for c in range(n):
+        starts.append(s)
+        s = decay[:, :, c] * s + kv[:, :, c]
+    s0 = torch.stack(starts, dim=2)
+    causal = torch.tril(torch.ones(C, C, dtype=torch.bool),
+                        -1 if exclusive else 0)
+    zero = torch.zeros(B, H, n, C, C)
+    if scalar:
+        D = exp(torch.clamp(Lq[..., 0][..., :, None]
+                            - L[..., 0][..., None, :], max=0.0))
+        A = _mma(zero, qc, kc.transpose(-1, -2), qk_split, qk_split, split)
+        A = torch.where(causal, A * D, 0.0)
+        y = _mma(torch.zeros(B, H, n, C, dv), qc, s0, qk_split, True,
+                 split) * exp(Lq)
+    else:
+        qt = qc * exp(Lq)
+        kt = kc * exp(-torch.clamp(L, min=-TS.CLAMP))
+        A = torch.where(causal, _mma(zero, qt, kt.transpose(-1, -2), True,
+                                     True, split), 0.0)
+        y = _mma(torch.zeros(B, H, n, C, dv), qt, s0, True, True, split)
+    y = _mma(y, A, vc, True, v_split, split)
+    return y.permute(0, 2, 3, 1, 4).reshape(B, S, H, dv), s
+
+
+def _head(kind, seed):
+    """One full-length head (S 4096, chunk 128, d 64) as ``chip_smoke.py``
+    phase 16 draws it: rwkv6-like, per-channel exclusive with decays
+    -exp(-6 + a small LoRA term), or zamba2-like, scalar inclusive with
+    -softplus decays; q, k and v N(0, 1) in bf16."""
+    rng = np.random.default_rng(seed)
+    S, d = 4096, 64
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, S, 1, d))
+                                .astype(np.float32)).bfloat16()
+               for _ in range(3))
+    if kind == "rwkv6":
+        lw = -np.exp(-6.0 + 0.12 * rng.standard_normal((1, S, 1, d)))
+    else:
+        lw = -np.logaddexp(0.0, rng.standard_normal((1, S, 1, 1)))
+    return q, k, v, torch.from_numpy(lw.astype(np.float32))
+
+
+def _normwise(got, ref):
+    return float((got.double() - ref).norm() / ref.norm())
+
+
+@pytest.mark.parametrize("dk,dv,chunk", [(16, 16, 32), (8, 32, 16),
+                                         (32, 16, 64)])
+@pytest.mark.parametrize("scalar,excl", [(True, False), (False, False),
+                                         (False, True)])
+def test_emulated_kernel_meets_the_sweep_bound(dk, dv, chunk, scalar, excl):
+    arrs = _t(_inputs(2, 128, 2, dk, dv, scalar, seed=dk + dv + chunk + excl))
+    y, s = _emulate_kernel(*arrs, chunk, excl)
+    y64, s64 = TK.gla_scan_ref(*(t.double() for t in arrs), chunk=chunk,
+                               exclusive=excl)
+    assert y.dtype == s.dtype == torch.float32
+    err = max(float((y.double() - y64).abs().max()),
+              float((s.double() - s64).abs().max()))
+    assert err <= SWEEP_TOL
+
+
+@pytest.mark.parametrize("kind,excl", [("rwkv6", True), ("zamba2", False)])
+def test_split_tf32_meets_the_card_bound_and_one_tf32_pass_does_not(kind,
+                                                                    excl):
+    q, k, v, lw = _head(kind, seed=23)
+    y64, s64 = TK.gla_scan_ref(q.double(), k.double(), v.double(),
+                               lw.double(), chunk=128, exclusive=excl)
+    y, s = _emulate_kernel(q, k, v, lw, 128, excl)
+    assert max(_normwise(y, y64), _normwise(s, s64)) <= NORM_TOL
+    if kind == "rwkv6":
+        y1, s1 = _emulate_kernel(q, k, v, lw, 128, excl, split=False)
+        assert max(_normwise(y1, y64), _normwise(s1, s64)) > NORM_TOL
+
+
+def test_tf32_rounding_model():
+    x = torch.tensor([1.0 + 2.0 ** -11, 1.0 + 2.0 ** -12, -(1.0 + 3 * 2.0 ** -11),
+                      3.0, 2.0 ** -130])
+    hi = _tf32(x)
+    assert hi.tolist() == [1.0 + 2.0 ** -10, 1.0, -(1.0 + 2.0 ** -9), 3.0,
+                           _read(x)[4].item()]
+    lo = x - hi
+    assert torch.equal(hi + lo, x)
+    assert float((_read(lo) - lo).abs().max()) <= 2.0 ** -21
