@@ -90,6 +90,20 @@ prints no result line):
              registers, shared memory and spills of each build; the share
              of a consumer warpgroup's SM cycles each phase takes (one
              launch of the profiled build, ``clock64``);
+15a. dist_main — the paper's distributed candidate of the same model and
+             batch, ``parallel.api.make_candidate_runner`` with dp 2, cp 2,
+             tp 2 and sp (8 ranks emulated in one process), checked by
+             ``ttrace_check`` against the plain model under bf16
+             thresholds, must PASS, launching the rel-err kernel on the
+             estimate and on the compare; prints the largest rel-err over
+             threshold, each step's seconds and the peak device memory; a
+             second candidate run must give a bit-identical trace;
+15b. dist_zero1 — the same check of the dp 2, tp 2, ZeRO-1 candidate must
+             PASS;
+15c. dist_control — ``tp_wrong_embedding_mask`` (dp 2, tp 2) must FAIL and
+             be localized to ``embedding*``, and ``sp_stale_wgrad`` (dp 2,
+             tp 2, sp), a gradient-only bug, to
+             ``layers.*.self_attention*``;
 16. ssm_kernel — ``gla_scan`` on the card against its plain version run in
              float64: the reference tests' sweep in f32 within 5e-4
              absolute; rwkv6-7b's time-mix shape (2 x 4096, 64 heads of 64,
@@ -121,7 +135,7 @@ prints no result line):
              takes (one launch of the profiled build, ``clock64``).
 
 Every kernel's launch count is set to 0 just before each path (phases 4,
-8, 12, 13, 14, 17 and 18) and read just after it.  At the end come the card's name and power
+8, 12, 13, 14, 15a, 15b, 15c, 17 and 18) and read just after it.  At the end come the card's name and power
 limit, then a ``{"kernels": [...]}`` JSON object, then the last line,
 ``{"ok": true, "device": {...}}``.
 """
@@ -177,6 +191,12 @@ FLASH_SWEEP_SHAPES = ((1, 128, 2, 2, 64), (2, 256, 4, 2, 64),
                       (1, 256, 8, 2, 128), (1, 128, 4, 1, 64),
                       (1, 100, 4, 2, 64), (1, 200, 4, 1, 128))
 FLASH_MODES = (("causal", 0), ("swa", 64), ("bidirectional", 0))
+# the distributed candidates of full-width gpt-paper (8 x 1024): the main
+# one on 8 emulated ranks, ZeRO-1, and the controls with the bug each injects
+DIST_MAIN = dict(dp=2, cp=2, tp=2, sp=True)
+DIST_ZERO1 = dict(dp=2, tp=2, zero1=True)
+DIST_CONTROLS = (("tp_wrong_embedding_mask", dict(dp=2, tp=2)),
+                 ("sp_stale_wgrad", dict(dp=2, tp=2, sp=True)))
 SSM_SOURCE = "src/repro_torch/kernels/csrc/ssm_scan.cu"
 SSM_REPLACES = "src/repro/kernels/ssm_scan.py:104"
 SSM_LAYERS = 2                     # rwkv6-7b at full width, cut to 2 layers
@@ -1219,6 +1239,132 @@ def flash_timing(device):
 
 
 # ---------------------------------------------------------------------------
+# phases 15a-15c: the distributed candidate (dp/cp/tp/sp/zero1 on emulated
+# ranks) of the same model and batch
+# ---------------------------------------------------------------------------
+
+def dist_check(cfg, model, batch, kw, bugs=()):
+    """``ttrace_check`` of ``parallel.api.make_candidate_runner`` (over
+    ``model``'s parameters) against the plain ``model`` under bf16
+    thresholds, every launch count set to 0 just before and read just
+    after.  Returns (result, stats)."""
+    import torch
+    from repro_torch.core.harness import make_model_runner, ttrace_check
+    from repro_torch.core.thresholds import MACHINE_EPS
+    from repro_torch.kernels.relerr import packed_sq_norms
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.parallel.api import ParallelConfig, make_candidate_runner
+
+    opt = AdamW(lr=1e-3)
+    pcfg = ParallelConfig(bugs=frozenset(bugs), **kw)
+    dev = model.device
+    ref_calls, cand_calls, marks = [], [], {}
+    ref = timed_runner(make_model_runner(model, opt, device=dev), ref_calls)
+    cand_run = timed_runner(make_candidate_runner(cfg, pcfg, model, opt,
+                                                  device=dev), cand_calls)
+
+    def cand(b, rewrites=None):
+        marks.setdefault("after_estimate", packed_sq_norms.launches)
+        return cand_run(b, rewrites)
+
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    res = ttrace_check(ref, cand, batch, eps=MACHINE_EPS["bfloat16"])
+    counts = read_counts()
+    seconds = {"1_reference": ref_calls[0],
+               "2_thresholds": res.seconds["estimate"] - ref_calls[0],
+               "3_candidate": res.seconds["candidate"],
+               "4_compare": res.seconds["compare"]}
+    if "localize" in res.seconds:
+        seconds["5_localize"] = res.seconds["localize"]
+    ratio, where = worst_record(res)
+    launches = counts["packed_sq_norms"]
+    stats = dict(
+        pcfg=kw, launches=launches,
+        estimate_launches=marks["after_estimate"],
+        compare_launches=launches - marks["after_estimate"],
+        other_launches={k: v for k, v in counts.items()
+                        if k != "packed_sq_norms" and v},
+        seconds=seconds, worst=ratio, worst_at=where,
+        peak_gib=(torch.cuda.max_memory_allocated(dev) / 2**30
+                  if dev.type == "cuda" else None))
+    log(res.summary())
+    log(f"dist {kw} bugs {sorted(bugs)}: largest rel-err / threshold "
+        f"{ratio:.4f} ({where}); packed_sq_norms launches: estimate "
+        f"{stats['estimate_launches']}, compare {stats['compare_launches']}"
+        f" (all {launches}), other kernels {stats['other_launches']}; step "
+        f"seconds {json.dumps(seconds)}; peak device memory "
+        f"{stats['peak_gib']} GiB")
+    return res, stats, cand_run
+
+
+def dist_verdict(name, res, stats, cfg, B, S):
+    if not res.passed:
+        raise AssertionError(f"clean {name} check did not PASS")
+    if stats["estimate_launches"] < 1 or stats["compare_launches"] < 1:
+        raise AssertionError(f"{name}: packed_sq_norms did not run on both "
+                             f"the estimate and the compare")
+    if stats["other_launches"]:
+        raise AssertionError(f"{name}: kernels off its path launched "
+                             f"{stats['other_launches']}")
+    check_trace_shapes(res, cfg, B, S)
+
+
+def bit_identical(t1, t2) -> list[str]:
+    """Every (section, name) where two traces differ in any bit."""
+    from repro_torch.core.collector import SECTION_FIELDS
+    import torch
+    out = []
+    for sec in SECTION_FIELDS:
+        s1, s2 = getattr(t1, sec), getattr(t2, sec)
+        if list(s1) != list(s2):
+            out.append(f"{sec}: names differ")
+            continue
+        out += [f"{sec}:{n}" for n in s1
+                if not torch.equal(s1.raw(n), s2.raw(n))]
+    if t1.loss != t2.loss or t1.grad_norm != t2.grad_norm:
+        out.append("loss or grad norm")
+    return out
+
+
+def dist_main(cfg, model, batch, B, S):
+    """The dp2 cp2 tp2 sp candidate (8 emulated ranks) must PASS; a second
+    candidate run must give a bit-identical trace."""
+    res, stats, cand_run = dist_check(cfg, model, batch, DIST_MAIN)
+    dist_verdict("dist_main", res, stats, cfg, B, S)
+    diffs = bit_identical(res.candidate, cand_run(batch))
+    if diffs:
+        raise AssertionError(f"two candidate runs differ in {len(diffs)} "
+                             f"tensors, first {diffs[:5]}")
+    log("dist_main: a second candidate run is bit-identical in every section")
+    return stats
+
+
+def dist_zero1(cfg, model, batch, B, S):
+    res, stats, _ = dist_check(cfg, model, batch, DIST_ZERO1)
+    dist_verdict("dist_zero1", res, stats, cfg, B, S)
+    return stats
+
+
+def dist_control(cfg, model, batch):
+    """Each control bug must FAIL and be localized to its registry module."""
+    import fnmatch
+    from repro_torch.bugs.registry import BUGS
+    out = {}
+    for bug, kw in DIST_CONTROLS:
+        res, stats, _ = dist_check(cfg, model, batch, kw, bugs=(bug,))
+        loc = res.localized_module
+        want = BUGS[bug].expected_module
+        if res.passed or loc is None or not fnmatch.fnmatchcase(loc, want):
+            raise AssertionError(f"{bug} under {kw}: passed={res.passed}, "
+                                 f"localized {loc!r}, expected {want!r}")
+        log(f"dist_control {bug}: FAIL, localized {loc!r} ({want!r})")
+        out[bug] = dict(stats, localized=loc)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phases 16-19: the rwkv6-7b check whose time mix runs on the gla_scan kernel
 # ---------------------------------------------------------------------------
 
@@ -1729,6 +1875,10 @@ def main() -> int:
                     f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}); "
                     f"warpgroup cycles by phase "
                     f"{json.dumps(row['phase_share'])}")
+    if main is not None:
+        phase("dist_main", lambda: dist_main(cfg, model, batch, B, S))
+        phase("dist_zero1", lambda: dist_zero1(cfg, model, batch, B, S))
+        phase("dist_control", lambda: dist_control(cfg, model, batch))
     # the rwkv6-7b phases need most of the card: drop the gpt-paper state
     main = res = model = batch = None
     torch.cuda.empty_cache()

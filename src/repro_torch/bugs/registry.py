@@ -3,8 +3,11 @@
 The port keeps the reference's whole table (Table 1 taxonomy: W-CP wrong
 computation, W-CM wrong communication, M-CM missing communication), so its
 tests and ``chip_smoke.py`` read each bug's ``expected_module`` from here.
-So far only ``fp8_stale_scale`` is injectable in the port (through
-``precision.fp8``); the others wait for the distributed candidates.
+Every entry but those in ``PENDING`` is injectable: ``fp8_stale_scale``
+through ``precision.fp8``, the rest through ``parallel`` (the distributed
+candidate).  ``PENDING`` names the ROADMAP item that brings each of the
+others; ``check_injectable`` refuses them rather than run a clean
+candidate under a bug's name.
 """
 from __future__ import annotations
 
@@ -112,3 +115,32 @@ def bug(bug_id: str) -> BugSpec:
 
 def available_for(features: set[str]) -> list[BugSpec]:
     return [b for b in BUGS.values() if set(b.requires) <= features]
+
+
+# the recipes these bugs live in are not ported yet
+PENDING: dict[str, str] = {
+    "pp_wrong_stage_division": "ROADMAP A7 (pipeline parallelism)",
+    "pp_microbatch_order": "ROADMAP A7 (pipeline parallelism)",
+    "pp_stale_boundary": "ROADMAP A7 (pipeline parallelism)",
+    "moe_router_not_synced": "ROADMAP A9 (MoE)",
+}
+
+
+def injectable() -> set[str]:
+    return set(BUGS) - set(PENDING)
+
+
+def check_injectable(bugs, features: set[str]) -> None:
+    """Raise unless every id in ``bugs`` is known, injectable in the port,
+    and expressible by a candidate with ``features``."""
+    unknown = set(bugs) - set(BUGS)
+    if unknown:
+        raise KeyError(f"unknown bug ids {sorted(unknown)}")
+    for b in sorted(set(bugs) & set(PENDING)):
+        raise NotImplementedError(f"bug {b!r} cannot be injected in the "
+                                  f"port yet: {PENDING[b]}")
+    for b in sorted(bugs):
+        missing = set(BUGS[b].requires) - set(features)
+        if missing:
+            raise ValueError(f"bug {b!r} needs {sorted(missing)}, which "
+                             f"this candidate does not run")

@@ -3,13 +3,15 @@
 The canonical identifier of a tensor is hashed into a seed for numpy's
 Philox generator, so the generated values are independent of device,
 framework and backend: the port's rewrites and perturbations are the
-reference's bit for bit.  Sharded generation arrives with the distributed
-candidates.
+reference's bit for bit.  ``generate_shard`` / ``extract_shard`` give a
+rank its slices of the logical full tensor (``core.annotations``).
 """
 from __future__ import annotations
 
 import numpy as np
 
+from repro_torch.core.annotations import (ShardSpec, shard_concat_dim,
+                                          slices_for_rank)
 from repro_torch.core.canonical import CanonicalId
 
 
@@ -30,6 +32,26 @@ def generate(cid, shape, dtype="float32", dist: str = "normal",
     else:
         raise ValueError(dist)
     return x.astype(dtype)
+
+
+def generate_shard(cid, global_shape, spec: ShardSpec, sizes: dict,
+                   coords: dict, dtype="float32", dist="normal",
+                   scale: float = 1.0) -> np.ndarray:
+    """The rank-local shard of the generated logical full tensor."""
+    full = generate(cid, global_shape, dtype, dist, scale)
+    return extract_shard(full, spec, sizes, coords)
+
+
+def extract_shard(full: np.ndarray, spec: ShardSpec, sizes: dict,
+                  coords: dict) -> np.ndarray:
+    frags = slices_for_rank(spec, full.shape, sizes, coords)
+    pieces = [full[f] for f in frags]
+    if len(pieces) == 1:
+        return pieces[0]
+    cdim = shard_concat_dim(spec)
+    if cdim is None:
+        raise ValueError("multi-fragment shard without a concat dim")
+    return np.concatenate(pieces, axis=cdim % full.ndim)
 
 
 def perturb(x: np.ndarray, rel_eps: float, seed: int = 0) -> np.ndarray:

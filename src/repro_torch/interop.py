@@ -13,7 +13,8 @@ import torch
 from repro_torch.core.collector import SECTION_FIELDS, Trace, to_numpy
 
 
-def _as_tensor(arr) -> torch.Tensor:
+def as_tensor(arr) -> torch.Tensor:
+    """A numpy array (bf16 as f32) as a CPU tensor."""
     arr = np.asarray(arr)
     if arr.dtype.kind == "V" or arr.dtype.name == "bfloat16":
         arr = arr.astype(np.float32)      # ml_dtypes bfloat16 has no torch twin
@@ -30,7 +31,7 @@ def params_from_jax(named: dict, model: torch.nn.Module) -> torch.nn.Module:
                        f"{sorted(set(params) - set(named))}, only in source "
                        f"{sorted(set(named) - set(params))}")
     for name, p in params.items():
-        src = _as_tensor(named[name])
+        src = as_tensor(named[name])
         if tuple(src.shape) != tuple(p.shape):
             raise ValueError(f"{name}: shape {tuple(src.shape)} != "
                              f"{tuple(p.shape)}")
