@@ -134,8 +134,37 @@ prints no result line):
              pass's time and the share of a block's SM cycles each phase
              takes (one launch of the profiled build, ``clock64``).
 
+20a. sup_clean (20a-20e run after 15c, before 16, in a temporary work dir
+             removed at the end) — the supervised loop
+             (``supervise.Supervisor``) over
+             ``gpt-paper`` at its published width cut to 4 layers (the
+             card machine's disk: see ``SUP_LAYERS``), B 8 x S 1024, seed 0,
+             the dp 2 tp 2 ZeRO-1 candidate, 8 steps with a check every
+             step, 2 in flight, a checkpoint every 2 steps, a ring window of
+             2 and spill on, overlapped: every step must PASS, the rel-err
+             kernel launched on the estimate and on every check and no other
+             kernel; prints each step's largest rel-err over threshold, its
+             reference, candidate and check seconds, the launches, the peak
+             device memory against the card's and what the work dir holds;
+20b. sup_lockstep — the same run lockstep (spill off): verdicts, every
+             rel-err, losses and final states bit-identical to 20a's;
+20c. sup_resume — ``python -m repro_torch.launch.supervise`` at 20a's
+             config (spill off, a checkpoint every 4 steps) with ``--fault
+             crash --fault-step 5`` must die by SIGKILL; ``--resume`` of its
+             work dir and an uninterrupted run, through the same CLI code in
+             this process, must give the same journaled verdicts and
+             rel-errs and bit-identical final states;
+20d. sup_late_bug — ``zero_skipped_update`` at ``SUP_LATE_LR``: the
+             single-step check at step 0 must PASS, the supervisor (16
+             steps, a check every 2, a checkpoint every 4) must flag, and
+             bisection must give a first bad step at or before the first
+             flagged one;
+20e. sup_fp8 — the ``fp8-tile128`` candidate supervised for 4 steps must
+             PASS each, launching ``fp8_matmul_tile128`` 3 times a layer per
+             candidate step (12 at 4 layers).
+
 Every kernel's launch count is set to 0 just before each path (phases 4,
-8, 12, 13, 14, 15a, 15b, 15c, 17 and 18) and read just after it.  At the end come the card's name and power
+8, 12, 13, 14, 15a, 15b, 15c, 17, 18 and 20a-20e) and read just after it.  At the end come the card's name and power
 limit, then a ``{"kernels": [...]}`` JSON object, then the last line,
 ``{"ok": true, "device": {...}}``.
 """
@@ -143,6 +172,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -197,6 +227,21 @@ DIST_MAIN = dict(dp=2, cp=2, tp=2, sp=True)
 DIST_ZERO1 = dict(dp=2, tp=2, zero1=True)
 DIST_CONTROLS = (("tp_wrong_embedding_mask", dict(dp=2, tp=2)),
                  ("sp_stale_wgrad", dict(dp=2, tp=2, sp=True)))
+# the supervised loop over full-width gpt-paper (phases 20a-20e): the batch,
+# the depth, the dp2 tp2 ZeRO-1 candidate, the clean run's config and the
+# late bug's lr.  The depth is cut from 12 to 4 layers for the disk: by the
+# tensors' sizes a spilled trace pair of 12 layers takes 4.95 GB and a
+# checkpoint of both states 2.44 GB, and a card machine may write 45 GiB in
+# all (deleted files count), which phase 20a alone would nearly fill
+SUP_BATCH = (8, 1024)
+SUP_LAYERS = 4
+SUP_PCFG = dict(dp=2, tp=2, zero1=True)
+SUP_SCFG = dict(check_every=1, async_window=2, ckpt_every=2, ring_window=2,
+                spill=True)
+# the late bug's lr: the single-step check is blind and the loop flags
+# (development runs in PERF.md, PR 20: at the JAX example's 1e-7 nothing
+# flags in 16 steps under bf16 thresholds)
+SUP_LATE_LR = 1e-3
 SSM_SOURCE = "src/repro_torch/kernels/csrc/ssm_scan.cu"
 SSM_REPLACES = "src/repro/kernels/ssm_scan.py:104"
 SSM_LAYERS = 2                     # rwkv6-7b at full width, cut to 2 layers
@@ -1365,6 +1410,295 @@ def dist_control(cfg, model, batch):
 
 
 # ---------------------------------------------------------------------------
+# phases 20a-20e: the supervised loop (step builders, async checker,
+# checkpoints, journal, bisection, resume) over full-width gpt-paper
+# ---------------------------------------------------------------------------
+
+def sup_model(cfg, device, seed=0):
+    from repro_torch.models.model import Model
+    return Model(cfg, seed=seed, device=device)
+
+
+def dir_gb(root) -> float:
+    """GB of the files under ``root`` (what a phase left on the disk)."""
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(root) for f in fs) / 1e9
+
+
+def sup_run(cfg, device, work_dir, pcfg_kw, steps, lr=1e-3, bugs=(),
+            **scfg_kw):
+    """One ``Supervisor`` run of full-width gpt-paper at B 8 x S 1024 on
+    ``device``, every launch count set to 0 just before and read just
+    after.  Each check launches the rel-err kernel once, so on a run that
+    neither bisects nor localizes the threshold estimate's launches are
+    the rest.  Returns (supervisor, result, stats)."""
+    import torch
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.parallel.api import ParallelConfig
+    from repro_torch.supervise import SuperviseConfig, Supervisor
+
+    B, S = SUP_BATCH
+    pcfg = ParallelConfig(bugs=frozenset(bugs), **pcfg_kw)
+    scfg = SuperviseConfig(steps=steps, work_dir=work_dir, seed=0, **scfg_kw)
+    sup = Supervisor(sup_model(cfg, device), cfg, pcfg, AdamW(lr=lr),
+                     scfg=scfg, batch_size=B, seq_len=S, device=device,
+                     log_fn=log)
+    base_gib = None
+    if device.type == "cuda":
+        # a finished supervisor's objects form reference cycles: collect
+        # the earlier phases' before this run's memory is read
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        base_gib = torch.cuda.memory_allocated(device) / 2**30
+    reset_counts()
+    t0 = time.perf_counter()
+    res = sup.run()
+    counts = read_counts()
+    seconds = time.perf_counter() - t0
+    worst = {k: (max(r.rel_err / r.threshold for r in rep.records)
+                 if rep is not None and rep.records else None)
+             for k, rep in sorted(res.checks.items())}
+    stats = dict(
+        counts=counts, checks=len(res.checks), worst=worst, seconds=seconds,
+        estimate_launches=(None if res.flagged else
+                           counts["packed_sq_norms"] - len(res.checks)),
+        steps=res.timings.get("steps", []),
+        timings={k: v for k, v in res.timings.items() if k != "steps"},
+        peak_gib=(torch.cuda.max_memory_allocated(device) / 2**30
+                  if device.type == "cuda" else None),
+        base_gib=base_gib,
+        card_gib=(torch.cuda.get_device_properties(device).total_memory
+                  / 2**30 if device.type == "cuda" else None))
+    log(res.summary())
+    log(f"supervised {pcfg_kw} bugs {sorted(bugs)} lr {lr} "
+        f"{json.dumps(scfg_kw)}: {res.steps_run} steps in {seconds:.2f} s; "
+        f"packed_sq_norms launches {counts['packed_sq_norms']}: one a "
+        f"check over {stats['checks']} checked steps, the estimate "
+        f"{stats['estimate_launches']}; all launches {json.dumps(counts)}; "
+        f"peak device memory {stats['peak_gib']} GiB of "
+        f"{stats['card_gib']} GiB ({base_gib} GiB held before the run)")
+    log("worst rel-err / threshold by step: " + json.dumps(worst))
+    log("seconds by step (reference and candidate between events on the "
+        "stream, check and wall on the host): " + json.dumps(stats["steps"]))
+    log("timings: " + json.dumps(stats["timings"]))
+    log(f"work dir holds {dir_gb(work_dir):.3f} GB")
+    return sup, res, stats
+
+
+def _check_records(res) -> dict:
+    from repro_torch.supervise.journal import report_to_payload
+    return {k: report_to_payload(v) for k, v in res.checks.items()}
+
+
+def _states_equal(s1, s2) -> list[str]:
+    """Every leaf where two ((ref_p, ref_opt), (cand_p, cand_opt)) states
+    differ in any bit."""
+    from repro_torch.checkpoint.store import flatten_named
+    import torch
+    a, b = flatten_named(s1), flatten_named(s2)
+    if list(a) != list(b):
+        return ["names differ"]
+    return [n for n in a if not (
+        torch.equal(a[n], b[n]) if isinstance(a[n], torch.Tensor)
+        else a[n] == b[n])]
+
+
+def sup_clean(cfg, device, root):
+    """20a: clean dp2·tp2·zero1 candidate, overlapped, spill on."""
+    sup, res, stats = sup_run(cfg, device, os.path.join(root, "a"),
+                              SUP_PCFG, steps=8, **SUP_SCFG)
+    if not res.passed or len(res.checks) != 8:
+        raise AssertionError(f"clean supervised run: passed={res.passed}, "
+                             f"{len(res.checks)} checks of 8")
+    if stats["estimate_launches"] != 5:
+        raise AssertionError(f"packed_sq_norms: {stats['counts']} launches "
+                             f"for 8 checks, want one a check and 5 (one a "
+                             f"trace kind) in the estimate")
+    off_path = {k: v for k, v in stats["counts"].items()
+                if k != "packed_sq_norms" and v}
+    if off_path:
+        raise AssertionError(f"kernels off the path launched {off_path}")
+    if stats["peak_gib"] is not None and stats["peak_gib"] >= stats["card_gib"]:
+        raise AssertionError(f"peak {stats['peak_gib']} GiB")
+    log(f"ring: {sup.ring.in_memory} in memory, {sup.ring.on_disk} "
+        f"spilled; checkpoints {sup.keeper.steps}")
+    return sup.state, res, stats
+
+
+def sup_lockstep(cfg, device, root, clean):
+    """20b: the same run lockstep: verdicts, rel-errs and final states
+    bit-identical to 20a.  Spill is off (it enters no verdict; its writes
+    would take the machine's disk past its limit)."""
+    state_a, res_a, stats_a = clean
+    sup, res, stats = sup_run(cfg, device, os.path.join(root, "b"),
+                              SUP_PCFG, steps=8,
+                              **dict(SUP_SCFG, overlap=False, spill=False))
+    if _check_records(res) != _check_records(res_a):
+        raise AssertionError("lockstep verdicts or rel-errs differ from "
+                             "the overlapped run's")
+    if res.losses != res_a.losses or res.cand_losses != res_a.cand_losses:
+        raise AssertionError("lockstep losses differ")
+    diffs = _states_equal(sup.state, state_a)
+    if diffs:
+        raise AssertionError(f"final states differ in {diffs[:5]}")
+    log(f"lockstep == overlapped: {len(res.checks)} verdicts, every "
+        f"rel-err, every loss and final state bit-identical; loop "
+        f"{stats['timings']['loop_s']:.3f} s lockstep vs "
+        f"{stats_a['timings']['loop_s']:.3f} s overlapped")
+    return stats
+
+
+def sup_resume(cfg, root):
+    """20c: crash and resume through the CLI: ``python -m
+    repro_torch.launch.supervise --fault crash --fault-step 5`` is
+    SIGKILLed at the top of step 5; ``--resume`` of its work dir, and an
+    uninterrupted run, go through the same CLI code (``launch.supervise.
+    run``) in this process.  The resumed run's journaled verdicts,
+    rel-errs and final states equal the uninterrupted run's.  20a's
+    config, with spill off and a checkpoint every 4 steps for the disk."""
+    from repro_torch.launch import supervise as cli
+    from repro_torch.supervise.journal import (Journal, JournalState,
+                                               journal_path,
+                                               report_to_payload)
+    B, S = SUP_BATCH
+    argv = ["--arch", cfg.name, "--layers", str(cfg.n_layers), "--steps",
+            "8", "--batch", str(B), "--seq", str(S), "--zero1",
+            "--check-every", "1", "--async-window", "2", "--ckpt-every", "4",
+            "--ring-window", "2", "--no-spill"]
+    crashed = os.path.join(root, "c_crash")
+    whole = os.path.join(root, "c_whole")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    seconds = {}
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.supervise", *argv,
+         "--work-dir", crashed, "--fault", "crash", "--fault-step", "5"],
+        capture_output=True, text=True, timeout=600, env=env, cwd=ROOT)
+    seconds["crash"] = time.perf_counter() - t0
+    log(f"--- cli crash: rc {out.returncode} in {seconds['crash']:.2f} s\n"
+        + "\n".join(out.stdout.strip().splitlines()[-3:]))
+    if out.returncode != -9:
+        raise AssertionError(f"cli crash: rc {out.returncode}, want -9 "
+                             f"(SIGKILL)\n{out.stdout}\n{out.stderr}")
+    runs = {}
+    for name, extra in (("resume", ["--work-dir", crashed, "--resume"]),
+                        ("whole", ["--work-dir", whole])):
+        t0 = time.perf_counter()
+        runs[name] = cli.run(cli.parse_args(argv + extra))
+        seconds[name] = time.perf_counter() - t0
+    (sup_r, res_r), (sup_w, res_w) = runs["resume"], runs["whole"]
+    if res_r.resumed_from is None or res_r.flagged or res_w.flagged:
+        raise AssertionError("the resumed or the uninterrupted run flagged, "
+                             "or the resume did not resume")
+    v_res, v_whole = ({k: report_to_payload(v) for k, v in JournalState(
+        Journal.read(journal_path(d))).verdicts.items()}
+        for d in (crashed, whole))
+    if v_res != v_whole or len(v_whole) != 8:
+        raise AssertionError(f"journaled verdicts differ: resumed steps "
+                             f"{sorted(v_res)}, uninterrupted "
+                             f"{sorted(v_whole)}")
+    diffs = _states_equal(sup_r.state, sup_w.state)
+    if diffs:
+        raise AssertionError(f"final states differ in {diffs[:5]}")
+    log(f"resume: from step {res_r.resumed_from}; 8 journaled verdicts and "
+        f"every final state leaf bit-identical to the uninterrupted run's; "
+        f"seconds {json.dumps(seconds)}")
+    return dict(seconds=seconds, resumed_from=res_r.resumed_from)
+
+
+def sup_late_bug(cfg, device, root):
+    """20d: zero_skipped_update at a fine-tuning lr: the single-step check
+    at step 0 PASSes, the supervisor flags at a later step and bisects to
+    a first bad step at or before it."""
+    from repro_torch.core.harness import make_model_runner, ttrace_check
+    from repro_torch.core.thresholds import MACHINE_EPS
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.parallel.api import ParallelConfig, make_candidate_runner
+
+    bug = "zero_skipped_update"
+    B, S = SUP_BATCH
+    model = sup_model(cfg, device)
+    opt = AdamW(lr=SUP_LATE_LR)
+    pcfg = ParallelConfig(bugs=frozenset([bug]), **SUP_PCFG)
+    reset_counts()
+    # the supervisor's own epsilon (CandidateStep.build): bf16 here
+    eps = max(MACHINE_EPS["float32"], MACHINE_EPS[cfg.compute_dtype])
+    one = ttrace_check(make_model_runner(model, opt, device=device),
+                       make_candidate_runner(cfg, pcfg, model, opt,
+                                             device=device),
+                       make_batch(cfg, B, S, seed=0, device=device),
+                       eps=eps, localize=False)
+    worst = max(r.rel_err / r.threshold for r in one.report.records)
+    log(f"single-step check at step 0, lr {SUP_LATE_LR}: "
+        f"{'PASS' if one.passed else 'FAIL'} (largest rel-err / threshold "
+        f"{worst:.4f}); launches {json.dumps(read_counts())}")
+    del model, one
+    sup, res, stats = sup_run(cfg, device, os.path.join(root, "d"),
+                              SUP_PCFG, steps=16, lr=SUP_LATE_LR,
+                              bugs=(bug,), check_every=2, ckpt_every=4,
+                              spill=False)
+    log(f"late bug: flagged at step {res.first_flagged_step}, first bad "
+        f"step {res.first_bad_step}, localized {res.localized_module!r}")
+    if worst >= 1.0:
+        raise AssertionError("the single-step check is not blind at this lr")
+    if not res.flagged or not res.first_flagged_step or (
+            res.first_bad_step is None
+            or res.first_bad_step > res.first_flagged_step):
+        raise AssertionError(f"supervisor: flagged={res.flagged}, first "
+                             f"flagged {res.first_flagged_step}, first bad "
+                             f"{res.first_bad_step}")
+    return dict(stats, first_flagged=res.first_flagged_step,
+                first_bad=res.first_bad_step, module=res.localized_module,
+                single_step_worst=worst)
+
+
+def sup_fp8(cfg, device, root):
+    """20e: the fp8-tile128 candidate under supervision, 4 clean steps."""
+    sup, res, stats = sup_run(cfg, device, os.path.join(root, "e"),
+                              {"fp8": "tile128"}, steps=4, spill=False)
+    per_step = stats["counts"]["fp8_matmul_tile128"] / 4
+    want = FP8_LAUNCHES_PER_RUN * cfg.n_layers // 12
+    log(f"fp8-tile128 supervised: fp8_matmul_tile128 launches "
+        f"{stats['counts']['fp8_matmul_tile128']} ({per_step:g} per "
+        f"candidate step, 3 MLP matmuls x {cfg.n_layers} layers)")
+    if not res.passed or len(res.checks) != 4:
+        raise AssertionError(f"fp8 supervised run: passed={res.passed}")
+    if per_step != want or stats["counts"]["fp8_matmul"]:
+        raise AssertionError(f"fp8 launches {stats['counts']}")
+    return stats
+
+
+def sup_phases(cfg, phase):
+    """Phases 20a-20e in a temporary work dir, removed at the end."""
+    import shutil
+    import tempfile
+    import torch
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(cfg, n_layers=SUP_LAYERS)
+    root = tempfile.mkdtemp(prefix="chip_smoke_supervise_")
+    out = {}
+    try:
+        clean = phase("sup_clean", lambda: sup_clean(cfg, dev, root))
+        if clean is not None:
+            out["clean"] = clean[2]
+            out["lockstep"] = phase("sup_lockstep", lambda: sup_lockstep(
+                cfg, dev, root, clean))
+        clean = None
+        shutil.rmtree(os.path.join(root, "a"), ignore_errors=True)
+        out["resume"] = phase("sup_resume", lambda: sup_resume(cfg, root))
+        out["late_bug"] = phase("sup_late_bug",
+                                lambda: sup_late_bug(cfg, dev, root))
+        out["fp8"] = phase("sup_fp8", lambda: sup_fp8(cfg, dev, root))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phases 16-19: the rwkv6-7b check whose time mix runs on the gla_scan kernel
 # ---------------------------------------------------------------------------
 
@@ -1879,9 +2213,11 @@ def main() -> int:
         phase("dist_main", lambda: dist_main(cfg, model, batch, B, S))
         phase("dist_zero1", lambda: dist_zero1(cfg, model, batch, B, S))
         phase("dist_control", lambda: dist_control(cfg, model, batch))
-    # the rwkv6-7b phases need most of the card: drop the gpt-paper state
+    # the supervised phases build their own models; then the rwkv6-7b
+    # phases need most of the card: drop the gpt-paper state
     main = res = model = batch = None
     torch.cuda.empty_cache()
+    sup_phases(cfg, phase)
     ssm_err = phase("ssm_kernel", lambda: check_ssm_kernel(dev))
     ssm = ssm_timed = None
     B_ssm, S_ssm = 2, 4096

@@ -36,6 +36,7 @@ class CheckRecord:
 @dataclass
 class Report:
     records: list[CheckRecord] = field(default_factory=list)
+    merge_problems: list[str] = field(default_factory=list)
     missing: list[str] = field(default_factory=list)
     localized: Optional[str] = None       # module blamed for the bug
     localization_mode: str = "propagation"  # or "rewrite"
@@ -46,7 +47,7 @@ class Report:
 
     @property
     def passed(self) -> bool:
-        return not self.flagged
+        return not self.flagged and not self.merge_problems
 
     @property
     def loud(self) -> list[CheckRecord]:
@@ -63,10 +64,13 @@ class Report:
     def summary(self, max_rows: int = 12) -> str:
         n_flag = len(self.flagged)
         lines = [f"TTrace report: {'PASS' if self.passed else 'FAIL'} "
-                 f"({n_flag}/{len(self.records)} tensors flagged)"]
+                 f"({n_flag}/{len(self.records)} tensors flagged, "
+                 f"{len(self.merge_problems)} merge problems)"]
         if self.loud:
             lines.append(f"  LOUD: {len(self.loud)} tensors with "
                          f"non-finite rel_err (NaN/Inf poisoning)")
+        for p in self.merge_problems:
+            lines.append(f"  [merge] {p}")
         shown = 0
         for r in self.records:
             if r.flagged and shown < max_rows:
@@ -111,11 +115,27 @@ def collect_section_pairs(ref: Trace, cand: Trace, kinds=DEFAULT_KINDS):
     return entries, leaves_ref, leaves_cand, missing
 
 
-def report_from_errs(entries, errs, thr: Thresholds, missing=()) -> Report:
+def merge_problems_of(trace) -> list[str]:
+    """The per-rank merge problems a candidate trace carries, if any
+    (``trace.meta['merge_report']``); they fail a check on their own."""
+    meta = getattr(trace, "meta", None) or {}
+    rep = meta.get("merge_report")
+    if rep is None or rep.ok:
+        return []
+    return list(rep.problems())
+
+
+def report_from_errs(entries, errs, thr: Thresholds, missing=(),
+                     thr_scale=1.0, merge_problems=()) -> Report:
     """Pass 2: fold per-pair relative errors (aligned with the comparable
-    entries) into a ``Report`` in section order, then localize."""
+    entries) into a ``Report`` in section order, then localize.
+
+    ``thr_scale`` widens thresholds: a float uniformly, a ``{kind: float}``
+    per trace kind (the supervisor's per-step allowance).  ``merge_problems``
+    fail the report unconditionally."""
     rep = Report()
     rep.missing.extend(missing)
+    rep.merge_problems.extend(merge_problems)
     it = iter(errs)
     for kind, name, mismatch in entries:
         if mismatch is not None:
@@ -123,7 +143,9 @@ def report_from_errs(entries, errs, thr: Thresholds, missing=()) -> Report:
                 kind, name, float("inf"), 0.0, True, note=mismatch))
             continue
         e = float(next(it))
-        t = thr.threshold(kind, name)
+        scale = (thr_scale.get(kind, 1.0) if isinstance(thr_scale, dict)
+                 else thr_scale)
+        t = thr.threshold(kind, name) * scale
         if not np.isfinite(e):
             # NaN compares False against every threshold: without this
             # branch a poisoned step would silently PASS

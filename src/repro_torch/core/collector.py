@@ -157,10 +157,17 @@ def _grad(t: torch.Tensor) -> torch.Tensor:
     return t.grad if t.grad is not None else torch.zeros_like(t)
 
 
-def trace_fn_step(loss_call, params: dict, batch, opt=None, opt_state=None,
-                  rewrites=None) -> tuple[Trace, dict, Optional[dict]]:
-    """Generic collector over any ``loss_call(batch, ctx) -> loss`` whose
-    parameters are ``params`` (``{flat name: Parameter}``)."""
+def load_params(params: dict, values: dict) -> None:
+    """Copy ``values`` into the ``{name: Parameter}`` leaves ``params``."""
+    with torch.no_grad():
+        for k, leaf in params.items():
+            leaf.copy_(values[k])
+
+
+def _collect(loss_call, params: dict, batch, rewrites=None) -> Trace:
+    """Forward and backward of ``loss_call`` with every tap and probe; the
+    trace's loss stays a device tensor (nothing here waits for the
+    device)."""
     ctx = TraceContext("rewrite" if rewrites else "collect",
                        rewrites=rewrites, probes=True)
     for p in params.values():
@@ -171,22 +178,116 @@ def trace_fn_step(loss_call, params: dict, batch, opt=None, opt_state=None,
     probes = ctx.probes
 
     tr = Trace()
-    tr.loss = float(loss.detach())
+    tr.loss = loss.detach()
     tr.activations = ctx.fwd
     tr.act_grads = {k: _grad(probes[k]) for k in fwd_order if k in probes}
     tr.param_grads = {k: _grad(p) for k, p in params.items()}
     tr.meta["fwd_order"] = fwd_order
     for p in params.values():
         p.grad = None
+    return tr
 
+
+def _optimizer_sections(tr: Trace, opt, values: dict, opt_state):
+    """Apply ``opt`` to ``values`` with the trace's gradients and record the
+    main gradients and post-step parameters; grad norm stays a tensor."""
+    new_params, new_state, info = opt.update(
+        values, dict(tr.param_grads.raw_items()), opt_state)
+    tr.main_grads = info.main_grads
+    tr.params_post = new_params
+    tr.grad_norm = info.grad_norm
+    return new_params, new_state
+
+
+def trace_fn_step(loss_call, params: dict, batch, opt=None, opt_state=None,
+                  rewrites=None) -> tuple[Trace, dict, Optional[dict]]:
+    """Generic collector over any ``loss_call(batch, ctx) -> loss`` whose
+    parameters are ``params`` (``{flat name: Parameter}``)."""
+    tr = _collect(loss_call, params, batch, rewrites)
+    tr.loss = float(tr.loss)
     new_params, new_state = params, opt_state
     if opt is not None:
         values = {k: p.detach() for k, p in params.items()}
         if opt_state is None:
             opt_state = opt.init(values)
-        new_params, new_state, info = opt.update(
-            values, dict(tr.param_grads.raw_items()), opt_state)
-        tr.main_grads = info.main_grads
-        tr.params_post = new_params
-        tr.grad_norm = float(info.grad_norm)
+        new_params, new_state = _optimizer_sections(tr, opt, values,
+                                                    opt_state)
+        tr.grad_norm = float(tr.grad_norm)
     return tr, new_params, new_state
+
+
+# ---------------------------------------------------------------------------
+# Stateful trace step (the supervisor's lockstep contract)
+# ---------------------------------------------------------------------------
+
+def make_trace_step(loss_call, opt, params: dict):
+    """A trace-collecting FULL train step over state threaded by the caller.
+
+    ``params`` are the ``{name: Parameter}`` leaves ``loss_call(batch, ctx)``
+    reads.  Returns ``step(p, opt_state, batch) -> (Trace, new_p,
+    new_opt_state)``: ``p`` is copied into the leaves, the step runs
+    forward, backward and ``opt.update(p, ...)``.  Nothing is updated in
+    place — the returned state and every trace leaf are new tensors — and
+    ``trace.loss`` / ``trace.grad_norm`` stay device tensors, so the caller
+    never has to wait for the device."""
+    def step(p: dict, st: dict, batch):
+        load_params(params, p)
+        tr = _collect(loss_call, params, batch)
+        new_p, new_st = _optimizer_sections(tr, opt, p, st)
+        return tr, new_p, new_st
+
+    return step
+
+
+# ---------------------------------------------------------------------------
+# Pair collector (threshold estimation: base and perturbed runs)
+# ---------------------------------------------------------------------------
+
+def make_pair_collector(loss_call, opt, params: dict, row_rewrite=None):
+    """Build-once BASE+PERTURBED pair collection.
+
+    Returns ``collect(p, opt_state, batch2, step=0) -> (Trace, Trace)``:
+    ``batch2`` stacks the two rows' batches on a leading axis of 2.  The
+    reference ``vmap``s the rows; here they run one after the other on
+    the same state (never as one batch of 2B, whose mean loss would mix
+    the rows' gradients).  ``row_rewrite(row, step)`` optionally gives a
+    row's callable rewrites (the token-input embedding perturbation, a
+    no-op on row 0).  Losses and grad norms stay device tensors."""
+    def collect(p: dict, st, batch2: dict, step: int = 0):
+        load_params(params, p)
+        traces = []
+        for row in (0, 1):
+            b = {k: v[row] for k, v in batch2.items()}
+            rew = row_rewrite(row, step) if row_rewrite is not None else None
+            tr = _collect(loss_call, params, b, rew)
+            if opt is not None:
+                _optimizer_sections(tr, opt, p, st)
+            traces.append(tr)
+        return traces[0], traces[1]
+
+    return collect
+
+
+def trace_fn_pair(loss_call, params: dict, batch2: dict, opt=None,
+                  opt_state=None) -> tuple[Trace, Trace]:
+    """Traces of the two rows of ``batch2`` (one-shot: host-float losses)."""
+    values = {k: p.detach() for k, p in params.items()}
+    st = None
+    if opt is not None:
+        st = opt_state if opt_state is not None else opt.init(values)
+    t0, t1 = make_pair_collector(loss_call, opt, params)(values, st, batch2)
+    for tr in (t0, t1):
+        tr.loss = float(tr.loss)
+        if opt is not None:
+            tr.grad_norm = float(tr.grad_norm)
+    return t0, t1
+
+
+def trace_pair_step(model, batch2: dict, opt=None, opt_state=None
+                    ) -> tuple[Trace, Trace]:
+    """``trace_fn_pair`` over a port ``Model``'s own parameters."""
+    def loss_call(b, ctx):
+        return model.loss(b, ctx=ctx)[0]
+
+    return trace_fn_pair(loss_call, named_params(model), batch2, opt=opt,
+                         opt_state=opt_state)

@@ -26,7 +26,8 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core.checker import (Report, compare_traces,
                                       localize_with_rewrites)
-from repro_torch.core.collector import Trace, trace_train_step
+from repro_torch.core.collector import (Trace, trace_pair_step,
+                                        trace_train_step)
 from repro_torch.core.thresholds import (MACHINE_EPS, Thresholds,
                                          estimate_thresholds)
 
@@ -86,7 +87,9 @@ def make_model_runner(model, opt=None, opt_state=None,
     """Reference runner over a port ``Model`` living on ``device``.
 
     Batch leaves and rewrites (numpy or tensors) are moved to ``device``;
-    the model's parameters are never changed by a run.
+    the model's parameters are never changed by a run.  ``run.pair(batch2)``
+    collects the two rows of a batch stacked on a leading axis of 2 (the
+    estimate's base and perturbed runs of float-input models).
     """
     dev = runner_device(model, device)
 
@@ -96,6 +99,11 @@ def make_model_runner(model, opt=None, opt_state=None,
                                     rewrites=rw)
         return tr
 
+    def run_pair(batch2):
+        b2, _ = inputs_on(dev, batch2)
+        return trace_pair_step(model, b2, opt=opt, opt_state=opt_state)
+
+    run.pair = run_pair
     return run
 
 
@@ -127,3 +135,21 @@ def ttrace_check(reference: Callable, candidate: Callable, batch: dict,
     return TTraceResult(report=report, localization=loc, thresholds=thr,
                         reference=ref_trace, candidate=cand_trace,
                         seconds=seconds)
+
+
+def ttrace_supervise(model, cfg, pcfg, opt, params=None, steps: int = 8,
+                     batch_fn: Optional[Callable] = None, device="cuda",
+                     **kwargs):
+    """Multi-step analogue of ``ttrace_check``: reference and candidate
+    train in lockstep for ``steps`` steps with online (async) checks; on a
+    flag the run is bisected to the first bad step and localized.
+
+    A thin facade over ``repro_torch.supervise.Supervisor``: ``kwargs`` are
+    ``SuperviseConfig`` fields plus ``batch_size``/``seq_len``/``log_fn``.
+    Returns a ``SuperviseResult``."""
+    from repro_torch.supervise import SuperviseConfig, Supervisor
+    sup_kw = {k: kwargs.pop(k) for k in ("batch_size", "seq_len", "log_fn")
+              if k in kwargs}
+    scfg = SuperviseConfig(steps=steps, **kwargs)
+    return Supervisor(model, cfg, pcfg, opt, params=params, scfg=scfg,
+                      batch_fn=batch_fn, device=device, **sup_kw).run()

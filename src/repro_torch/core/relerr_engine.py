@@ -10,8 +10,14 @@ from one reduction:
   its plain version for CPU tensors; N x 2 scalars reach the host;
 * **loop**: below ``MIN_BATCHED_ELEMS`` total elements, a per-pair float64
   loop — the reference semantic, cheaper than packing a tiny section.
+
+``sq_norms_async`` is the asynchronous form the supervised loop uses: the
+packed reduction is dispatched and its N x 2 result copied to pinned host
+memory behind a CUDA event, and a ``NormsFuture`` stands for it.
 """
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -30,12 +36,27 @@ def _raw(section, name):
     return getter(name) if getter is not None else section[name]
 
 
+@functools.lru_cache(maxsize=64)
+def _segments(sizes: tuple, block: int, device: torch.device):
+    """``(seg_ids, counts)`` of a packed section on ``device``.  Computed
+    host-side from the sizes and copied once per layout: a section's
+    layout repeats every step, and a copy per call would wait for the
+    device."""
+    nblocks = [max(1, -(-s // block)) for s in sizes]
+    seg_ids = np.repeat(np.arange(len(sizes), dtype=np.int32), nblocks)
+    counts = np.concatenate([
+        np.clip(s - np.arange(nb, dtype=np.int64) * block, 0, block)
+        for s, nb in zip(sizes, nblocks)]).astype(np.int32)
+    return (torch.from_numpy(seg_ids).to(device),
+            torch.from_numpy(counts).to(device))
+
+
 def pack_device(leaves_a, leaves_b, block: int = DEFAULT_BLOCK):
     """Pack pairs into the kernel's flat block-aligned f32 layout on the
     leaves' device.  Returns (a_flat, b_flat, seg_ids, counts); see
     ``kernels.relerr`` for the layout contract.  Metadata is computed
     host-side from shapes — no leaf is transferred."""
-    sizes = [int(x.numel()) for x in leaves_a]
+    sizes = tuple(int(x.numel()) for x in leaves_a)
     nblocks = [max(1, -(-s // block)) for s in sizes]
     device = leaves_a[0].device
     total = sum(nblocks) * block
@@ -47,12 +68,8 @@ def pack_device(leaves_a, leaves_b, block: int = DEFAULT_BLOCK):
             flat[off:off + s].copy_(x.reshape(-1))
             off += nb * block
         flats.append(flat)
-    seg_ids = np.repeat(np.arange(len(sizes), dtype=np.int32), nblocks)
-    counts = np.concatenate([
-        np.clip(s - np.arange(nb, dtype=np.int64) * block, 0, block)
-        for s, nb in zip(sizes, nblocks)]).astype(np.int32)
-    return (flats[0], flats[1], torch.from_numpy(seg_ids).to(device),
-            torch.from_numpy(counts).to(device))
+    seg_ids, counts = _segments(sizes, block, device)
+    return flats[0], flats[1], seg_ids, counts
 
 
 def _packed_path(leaves_a, leaves_b) -> np.ndarray:
@@ -87,6 +104,48 @@ def section_sq_norms(leaves_a, leaves_b, mode: str | None = None
     if mode == "packed":
         return _packed_path(leaves_a, leaves_b)
     raise ValueError(f"unknown rel-err engine mode {mode!r}")
+
+
+class NormsFuture:
+    """The (N, 2) result of ``sq_norms_async``: ``is_ready()`` probes its
+    CUDA event without waiting; ``np.asarray(future)`` waits on the event
+    and returns the host array.  A future over CPU tensors is resolved
+    when made."""
+
+    def __init__(self, host: torch.Tensor, event=None):
+        self._host = host
+        self._event = event
+
+    def is_ready(self) -> bool:
+        return self._event is None or self._event.query()
+
+    def __array__(self, dtype=None, copy=None):
+        if self._event is not None:
+            self._event.synchronize()
+        arr = self._host.numpy()
+        return arr if dtype is None else arr.astype(dtype)
+
+
+def sq_norms_async(leaves_a, leaves_b) -> NormsFuture:
+    """Dispatch the per-pair ``(||a-b||^2, ||a||^2)`` reduction and return
+    a ``NormsFuture`` without waiting for the device.
+
+    On CUDA tensors: ``pack_device``, one ``packed_sq_norms`` launch, and a
+    non-blocking copy of the (N, 2) result into pinned host memory behind
+    a recorded event.  On CPU tensors the same packed reduction runs (its
+    plain version) and the future is already resolved."""
+    if not leaves_a:
+        return NormsFuture(torch.zeros((0, 2), dtype=torch.float32))
+    a_flat, b_flat, seg_ids, counts = pack_device(leaves_a, leaves_b)
+    out = ops.packed_sq_norms(a_flat, b_flat, seg_ids, counts,
+                              n_segments=len(leaves_a))
+    if out.device.type != "cuda":
+        return NormsFuture(out)
+    host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+    host.copy_(out, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(out.device))
+    return NormsFuture(host, event)
 
 
 def _to_rel_err(sq: np.ndarray) -> np.ndarray:

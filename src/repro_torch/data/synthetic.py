@@ -29,5 +29,28 @@ def make_batch(cfg: ArchConfig, batch: int, seq: int, *, seed: int = 0,
     """One global batch of ``tokens`` and next-token ``labels`` (int64)."""
     dev = resolve_device(device)
     gen = torch.Generator().manual_seed(seed * 1_000_003 + step)
-    toks = _tokens(gen, batch, seq + 1, cfg.vocab).to(dev)
+    toks = _tokens(gen, batch, seq + 1, cfg.vocab)
+    if dev.type == "cuda":
+        # pinned and non-blocking: a training loop never waits for the copy
+        toks = toks.pin_memory().to(dev, non_blocking=True)
     return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+class DataLoader:
+    """Iterator facade over the stateless generator (launcher-facing).
+    ``shape`` has ``global_batch`` and ``seq_len``."""
+
+    def __init__(self, cfg: ArchConfig, shape, seed: int = 0,
+                 device="cuda"):
+        self.cfg, self.shape, self.seed = cfg, shape, seed
+        self.device = resolve_device(device)
+        self.step = 0
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        b = make_batch(self.cfg, self.shape.global_batch, self.shape.seq_len,
+                       seed=self.seed, step=self.step, device=self.device)
+        self.step += 1
+        return b

@@ -41,7 +41,7 @@ def params_from_jax(named: dict, model: torch.nn.Module) -> torch.nn.Module:
 
 def trace_to_numpy(trace: Trace) -> Trace:
     """A copy of ``trace`` whose leaves are host numpy (bf16 -> float32)."""
-    out = Trace(loss=trace.loss, grad_norm=float(trace.grad_norm),
+    out = Trace(loss=float(trace.loss), grad_norm=float(trace.grad_norm),
                 meta=dict(trace.meta))
     for f in SECTION_FIELDS:
         setattr(out, f, {k: to_numpy(v) for k, v in

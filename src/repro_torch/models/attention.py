@@ -76,7 +76,7 @@ def attention_blockwise(q, k, v, mode="causal", window=0, q_block=512,
     G = H // Hkv
     assert S % q_block == 0 and K % kv_block == 0, (S, K, q_block, kv_block)
     nq, nk = S // q_block, K // kv_block
-    scale = 1.0 / torch.sqrt(torch.tensor(float(D), device=q.device))
+    scale = 1.0 / torch.sqrt(torch.full((), float(D), device=q.device))
 
     qb = q.reshape(B, nq, q_block, Hkv, G, D).permute(1, 0, 3, 4, 2, 5)
     # (nq, B, Hkv, G, qb, D)

@@ -5,6 +5,8 @@ Linear weights keep the reference's ``(d_in, d_out)`` layout and compute
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -76,9 +78,15 @@ def rope_freqs(d: int, theta: float) -> np.ndarray:
     return 1.0 / (theta ** (np.arange(0, d, 2, dtype=np.float32) / d))
 
 
+@functools.lru_cache(maxsize=32)
+def _rope_table(d: int, theta: float, device: torch.device) -> torch.Tensor:
+    # copied to the device once: a copy per call would wait for the device
+    return torch.as_tensor(rope_freqs(d, theta), device=device)
+
+
 def apply_rope(x, positions, theta):
     """x: (..., S, H, D) or (..., S, D); positions: (..., S)."""
-    freqs = torch.as_tensor(rope_freqs(x.shape[-1], theta), device=x.device)
+    freqs = _rope_table(x.shape[-1], theta, x.device)
     angles = positions[..., None].float() * freqs          # (..., S, d/2)
     if x.ndim == angles.ndim + 1:                          # broadcast over H
         angles = angles[..., None, :]

@@ -235,19 +235,34 @@ def _check_recipe_pcfg(cfg, pcfg: ParallelConfig) -> None:
             f"(got arch_type={cfg.arch_type!r})")
 
 
-def _recipe_runner(cfg, pcfg: ParallelConfig, ref_params: dict, opt,
-                   opt_state, device):
+def _recipe_model(cfg, pcfg: ParallelConfig, ref_params, device):
+    """The recipe candidate's own ``Model`` holding ``ref_params``."""
     _check_recipe_pcfg(cfg, pcfg)
     if pcfg.recipe_kind in ("pp", "pp_1f1b"):
         raise NotImplementedError(
             f"the {pcfg.recipe_kind} candidate is not ported yet "
             f"(ROADMAP A7)")
-    from repro_torch.interop import params_from_jax
+    from repro_torch.core.collector import load_params, named_params
     from repro_torch.models.model import Model
+    model = Model(cfg, device=device)
+    load_params(named_params(model),
+                {n: _on(v, device) for n, v in _named(ref_params).items()})
+    return model
+
+
+def _recipe_runner(cfg, pcfg: ParallelConfig, ref_params: dict, opt,
+                   opt_state, device):
     from repro_torch.precision.fp8 import make_fp8_runner
-    model = params_from_jax(_named(ref_params), Model(cfg, device=device))
+    model = _recipe_model(cfg, pcfg, ref_params, device)
     return make_fp8_runner(model, pcfg.fp8, opt=opt, opt_state=opt_state,
                            bugs=pcfg.bugs, device=device)
+
+
+def _recipe_train_step(cfg, pcfg: ParallelConfig, ref_params, opt, device):
+    from repro_torch.precision.fp8 import make_fp8_train_step
+    model = _recipe_model(cfg, pcfg, ref_params, device)
+    return make_fp8_train_step(model, opt, pcfg.fp8, bugs=pcfg.bugs,
+                               device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -276,10 +291,15 @@ def layout_maps(cfg, tp: int):
     layout (numpy arrays or tensors)."""
     perm = qkv_permutation(cfg, tp)
     inv_perm = np.argsort(perm)
+    on_device = {}
 
     def index(leaf, p):
+        # a device's index is made once: a copy per call would wait for it
         if isinstance(leaf, torch.Tensor):
-            return torch.as_tensor(p, device=leaf.device)
+            key = (id(p), leaf.device)
+            if key not in on_device:
+                on_device[key] = torch.as_tensor(p, device=leaf.device)
+            return on_device[key]
         return p
 
     def to_candidate(name, leaf):
@@ -349,12 +369,17 @@ class _Plumbing:
         self.loss_axes = tuple(a for a, n in (("dp", pcfg.dp),
                                               ("cp", pcfg.cp)) if n > 1)
 
-    def body(self, leaves: dict, bb: dict, rew: Optional[dict]):
+    def body(self, leaves: dict, bb: dict, rew: Optional[dict],
+             trace: bool = True):
         """Forward + backward of every rank + gradient reductions; returns
-        rank-stacked ``(loss, taps, param grads, act grads)``."""
+        rank-stacked ``(loss, taps, param grads, act grads)`` (no taps and
+        no act grads when ``trace`` is False)."""
         cfg, pcfg, bugs, mesh = self.cfg, self.pcfg, self.pcfg.bugs, self.mesh
-        ctx = TraceContext("rewrite" if rew else "collect", rewrites=rew,
-                           probes=True)
+        if trace:
+            ctx = TraceContext("rewrite" if rew else "collect", rewrites=rew,
+                               probes=True)
+        else:
+            ctx = TraceContext("off")
         for leaf in leaves.values():
             leaf.grad = None
         gloss, rloss = parallel_gpt_loss(mesh, nest_named(leaves), bb, cfg,
@@ -366,7 +391,7 @@ class _Plumbing:
         for leaf in leaves.values():
             leaf.grad = None
         pg = reduce_param_grads(mesh, pg, pcfg, bugs)
-        ag = {n: _grad(probe) for n, probe in ctx.probes.items()}
+        ag = {n: _grad(probe) for n, probe in (ctx.probes or {}).items()}
         ag = reduce_act_grads(mesh, ag, self.ann, pcfg, bugs)
         loss = rloss.detach()
         if self.loss_axes:
@@ -415,6 +440,45 @@ class _Plumbing:
         return self.shard(v, self.layout_spec(n))
 
 
+def _leaves(pl: _Plumbing, params: dict, dev, dtype) -> dict:
+    """One leaf per parameter holding every rank's shard (layout-mapped):
+    each rank's slice of its ``.grad`` is that rank's own gradient."""
+    return {n: pl.shard(pl.to_cand(n, _on(v, dev, dtype)),
+                        pl.ann.param_spec(n)).requires_grad_()
+            for n, v in params.items()}
+
+
+def _candidate_trace(pl: _Plumbing, leaves: dict, batch: dict, rewrites=None):
+    """The forward/backward sections of one candidate run and its param
+    grads in reference layout; ``trace.loss`` stays a device tensor."""
+    dev = pl.mesh.device
+    b = {k: pl.shard(v, pl.batch_spec)
+         for k, v in pl.zigzag_batch(batch).items()}
+    rew = None
+    if rewrites:
+        rew = {n: pl.act_in(n, _on(v, dev)) for n, v in rewrites.items()}
+    loss, taps, pg, ag = pl.body(leaves, b, rew)
+    names = list(taps)
+    tr = Trace()
+    tr.loss = loss[0]
+    tr.activations = {n: pl.act_out(n, taps[n]) for n in names}
+    tr.act_grads = {n: pl.act_out(n, ag[n]) for n in names if n in ag}
+    pg_named = {n: pl.from_cand(n, pl.unshard(g, pl.ann.param_spec(n)))
+                for n, g in pg.items()}
+    tr.param_grads = dict(pg_named)
+    tr.meta["fwd_order"] = names
+    tr.meta["annotations"] = pl.ann
+    tr.meta["pcfg"] = pl.pcfg
+    return tr, pg_named
+
+
+def _update(pcfg: ParallelConfig, opt, params: dict, grads: dict, st):
+    """The candidate's optimizer step: plain AdamW or (buggy) ZeRO-1."""
+    if pcfg.zero1:
+        return zero1_update(opt, params, grads, st, pcfg.dp, pcfg.bugs)
+    return opt.update(params, grads, st)
+
+
 def make_candidate_runner(cfg, pcfg: ParallelConfig, ref_params, opt=None,
                           opt_state=None, device="cuda"):
     """Build ``runner(batch, rewrites) -> Trace`` for the candidate recipe:
@@ -429,44 +493,96 @@ def make_candidate_runner(cfg, pcfg: ParallelConfig, ref_params, opt=None,
     if pcfg.recipe_kind != "shard_map":
         return _recipe_runner(cfg, pcfg, ref_params, opt, opt_state, dev)
     pl = _Plumbing(cfg, pcfg, dev)
-    bugs = pcfg.bugs
     dtype = getattr(torch, cfg.param_dtype)
     ref = {n: _on(v, dev, dtype) for n, v in _named(ref_params).items()}
-    # one leaf per parameter holding every rank's shard (layout-mapped): each
-    # rank's slice of its .grad is that rank's own gradient
-    leaves = {n: pl.shard(pl.to_cand(n, v), pl.ann.param_spec(n))
-              .requires_grad_() for n, v in ref.items()}
+    leaves = _leaves(pl, ref, dev, dtype)
 
     def _run(batch, rewrites=None) -> Trace:
-        b = {k: pl.shard(v, pl.batch_spec)
-             for k, v in pl.zigzag_batch(batch).items()}
-        rew = None
-        if rewrites:
-            rew = {n: pl.act_in(n, _on(v, dev)) for n, v in rewrites.items()}
-        loss, taps, pg, ag = pl.body(leaves, b, rew)
-        names = list(taps)
-
-        tr = Trace()
-        tr.loss = float(loss[0])
-        tr.activations = {n: pl.act_out(n, taps[n]) for n in names}
-        tr.act_grads = {n: pl.act_out(n, ag[n]) for n in names if n in ag}
-        pg_named = {n: pl.from_cand(n, pl.unshard(g, pl.ann.param_spec(n)))
-                    for n, g in pg.items()}
-        tr.param_grads = dict(pg_named)
-        tr.meta["fwd_order"] = names
-        tr.meta["annotations"] = pl.ann
-        tr.meta["pcfg"] = pcfg
-
+        tr, pg_named = _candidate_trace(pl, leaves, batch, rewrites)
+        tr.loss = float(tr.loss)
         if opt is not None:
             st = opt_state if opt_state is not None else opt.init(ref)
-            if pcfg.zero1:
-                new_p, _, info = zero1_update(opt, ref, pg_named, st, pcfg.dp,
-                                              bugs)
-            else:
-                new_p, _, info = opt.update(ref, pg_named, st)
+            new_p, _, info = _update(pcfg, opt, ref, pg_named, st)
             tr.main_grads = info.main_grads
             tr.params_post = new_p
             tr.grad_norm = float(info.grad_norm)
         return tr
 
     return _run
+
+
+# ---------------------------------------------------------------------------
+# Stateful candidate train step (the supervisor's lockstep contract)
+# ---------------------------------------------------------------------------
+
+def make_candidate_train_step(cfg, pcfg: ParallelConfig, ref_params, opt,
+                              device="cuda"):
+    """The FULL candidate train step over state threaded by the caller.
+
+    ``make_candidate_runner`` is stateless: it applies the optimizer to the
+    reference params it was built with.  The supervisor instead threads the
+    candidate's own (params, opt_state) through N steps.  That state stays
+    in REFERENCE layout (fused-QKV order, full tensors, ZeRO-1's moments
+    included); each step maps it to the rank-stacked candidate layout,
+    runs every rank's forward/backward and the gradient reductions, and
+    applies the (possibly buggy ZeRO-1) update in reference layout.
+    Checkpoints, replays and resumes are therefore layout-free.
+
+    Returns ``(step, params0, opt_state0)`` with ``step(params, opt_state,
+    batch) -> (Trace, new_params, new_opt_state)``.  Nothing is updated in
+    place, and ``trace.loss`` / ``trace.grad_norm`` stay device tensors.
+    Dispatches on ``pcfg.recipe_kind``: the FP8 candidate returns its own
+    step under the same contract (``precision.fp8``)."""
+    dev = resolve_device(device)
+    check_injectable(pcfg.bugs, pcfg.features)
+    if pcfg.recipe_kind != "shard_map":
+        return _recipe_train_step(cfg, pcfg, ref_params, opt, dev)
+    pl = _Plumbing(cfg, pcfg, dev)
+    dtype = getattr(torch, cfg.param_dtype)
+
+    def step(params: dict, opt_state: dict, batch: dict):
+        leaves = _leaves(pl, params, dev, dtype)
+        tr, pg_named = _candidate_trace(pl, leaves, batch)
+        new_p, new_st, info = _update(pcfg, opt, params, pg_named, opt_state)
+        tr.main_grads = info.main_grads
+        tr.params_post = new_p
+        tr.grad_norm = info.grad_norm
+        return tr, new_p, new_st
+
+    params0 = {n: _on(v, dev, dtype).clone()
+               for n, v in _named(ref_params).items()}
+    return step, params0, opt.init(params0)
+
+
+def make_plain_train_step(cfg, pcfg: ParallelConfig, ref_params, opt,
+                          device="cuda"):
+    """The distributed candidate's train step without any tracing (the
+    loss-curve practice the paper contrasts TTrace with, Fig 1).
+
+    Returns ``(step, prep, params0, opt_state0)``: ``prep(batch)`` puts a
+    batch on the device, ``step(params, opt_state, batch) -> (params,
+    opt_state, loss)``."""
+    dev = resolve_device(device)
+    check_injectable(pcfg.bugs, pcfg.features)
+    if pcfg.recipe_kind != "shard_map":
+        raise ValueError(f"the plain step is the shard_map candidate's; "
+                         f"recipe {pcfg.recipe_kind!r} has none")
+    pl = _Plumbing(cfg, pcfg, dev)
+    dtype = getattr(torch, cfg.param_dtype)
+
+    def prep(batch: dict) -> dict:
+        return {k: _on(batch[k], dev) for k in ("tokens", "labels")}
+
+    def step(params: dict, opt_state: dict, batch: dict):
+        leaves = _leaves(pl, params, dev, dtype)
+        b = {k: pl.shard(v, pl.batch_spec)
+             for k, v in pl.zigzag_batch(batch).items()}
+        loss, _, pg, _ = pl.body(leaves, b, None, trace=False)
+        grads = {n: pl.from_cand(n, pl.unshard(g, pl.ann.param_spec(n)))
+                 for n, g in pg.items()}
+        new_p, new_st, _ = _update(pcfg, opt, params, grads, opt_state)
+        return new_p, new_st, loss[0]
+
+    params0 = {n: _on(v, dev, dtype).clone()
+               for n, v in _named(ref_params).items()}
+    return step, prep, params0, opt.init(params0)

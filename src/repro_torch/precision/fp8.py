@@ -176,3 +176,26 @@ def make_fp8_runner(model, recipe: str, opt=None, opt_state=None,
         return tr
 
     return run
+
+
+def make_fp8_train_step(model, opt, recipe: str, bugs=frozenset(),
+                        device="cuda"):
+    """The FP8 candidate's train step over state threaded by the caller
+    (the supervisor's contract): ``model`` with FP8 MLP matmuls, its own
+    parameters the leaves the state is copied into.
+
+    Returns ``(step, params0, opt_state0)`` with ``step(params, opt_state,
+    batch) -> (Trace, new_params, new_opt_state)``; it trains under the
+    full-precision reference with BF16-epsilon thresholds (paper §6.7)."""
+    from repro_torch.core.collector import make_trace_step, named_params
+    from repro_torch.core.harness import runner_device
+    runner_device(model, device)
+    precision = fp8_precision(recipe, bugs)
+    params = named_params(model)
+
+    def loss_call(batch, ctx):
+        return model.loss(batch, ctx=ctx, precision=precision)[0]
+
+    params0 = {k: p.detach().clone() for k, p in params.items()}
+    return (make_trace_step(loss_call, opt, params), params0,
+            opt.init(params0))
