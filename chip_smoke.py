@@ -161,10 +161,34 @@ prints no result line):
              flagged one;
 20e. sup_fp8 — the ``fp8-tile128`` candidate supervised for 4 steps must
              PASS each, launching ``fp8_matmul_tile128`` 3 times a layer per
-             candidate step (12 at 4 layers).
+             candidate step (12 at 4 layers);
+21a. pp_staged (21a-21d run after 20e, in its work dir) — the staged
+             pipeline candidate of full-width ``gpt-paper``
+             (B 8 x S 1024, seed 0, bf16 thresholds) at pp 4 and at pp 5
+             (stages of 3 3 2 2 2 layers) must PASS, the rel-err kernel
+             launched on the estimate and on the compare and no other;
+21b. pp_1f1b — the 1F1B candidate at pp 4 x 4 microbatches (stages
+             emulated on the card) must PASS likewise; the engine's
+             per-stage op order must be ``stage_op_stream``, its merge
+             report clean, no stage's stash deeper than pp - s, a rerun and
+             the ordered drive bit-identical to the concurrent one, and the
+             plan merge equal to ``merge_microbatch_traces`` of the same
+             records bit for bit;
+21c. pp_controls — ``pp_wrong_stage_division`` (staged pp 4) and
+             ``pp_stale_boundary`` (1F1B) must FAIL at ``layers.3*``, and
+             ``pp_microbatch_order`` (1F1B) must FAIL on the gradient
+             sections alone, its activations and loss byte-identical to the
+             clean engine's;
+21d. sup_pp — ``gpt-paper`` at 4 layers, B 8 x S 1024: the ``pp-1f1b``
+             recipe at pp 2 x 4 microbatches supervised for 4 steps (spill
+             off, one checkpoint) must PASS each, as ``pp1f1b2x4`` with
+             kind_scale 2; ``python -m repro_torch.launch.supervise
+             --recipe pp --bug pp_wrong_stage_division`` for 4 steps must
+             flag with first bad step 0 at a ``layers.*`` module.
 
 Every kernel's launch count is set to 0 just before each path (phases 4,
-8, 12, 13, 14, 15a, 15b, 15c, 17, 18 and 20a-20e) and read just after it.  At the end come the card's name and power
+8, 12, 13, 14, 15a, 15b, 15c, 17, 18, 20a-20e and 21a-21d) and read just
+after it.  At the end come the card's name and power
 limit, then a ``{"kernels": [...]}`` JSON object, then the last line,
 ``{"ok": true, "device": {...}}``.
 """
@@ -242,6 +266,18 @@ SUP_SCFG = dict(check_every=1, async_window=2, ckpt_every=2, ring_window=2,
 # (development runs in PERF.md, PR 20: at the JAX example's 1e-7 nothing
 # flags in 16 steps under bf16 thresholds)
 SUP_LATE_LR = 1e-3
+# the pipeline candidates of full-width gpt-paper (phases 21a-21d): the
+# staged degrees (pp 5 divides 12 layers unevenly, 3 3 2 2 2), the 1F1B
+# candidate (pp 4 x 4 microbatches of 2 x 1024), the three pp bugs with the
+# candidate each runs under and the module each must be localized to
+# (fnmatch; None: the verdict must come from the gradient sections), and
+# the supervised 1F1B recipe (pp 2 x 4 microbatches, at SUP_LAYERS)
+PP_STAGED = (4, 5)
+PP_1F1B = dict(pp=4, pp_schedule="1f1b", microbatches=4)
+PP_CONTROLS = (("pp_wrong_stage_division", dict(pp=4), "layers.3*"),
+               ("pp_stale_boundary", PP_1F1B, "layers.3*"),
+               ("pp_microbatch_order", PP_1F1B, None))
+SUP_PP = dict(pp=2, pp_schedule="1f1b", microbatches=4)
 SSM_SOURCE = "src/repro_torch/kernels/csrc/ssm_scan.cu"
 SSM_REPLACES = "src/repro/kernels/ssm_scan.py:104"
 SSM_LAYERS = 2                     # rwkv6-7b at full width, cut to 2 layers
@@ -1368,9 +1404,17 @@ def bit_identical(t1, t2) -> list[str]:
             continue
         out += [f"{sec}:{n}" for n in s1
                 if not torch.equal(s1.raw(n), s2.raw(n))]
-    if t1.loss != t2.loss or t1.grad_norm != t2.grad_norm:
+    if not all(_same_scalar(a, b) for a, b in ((t1.loss, t2.loss),
+                                               (t1.grad_norm, t2.grad_norm))):
         out.append("loss or grad norm")
     return out
+
+
+def _same_scalar(a, b) -> bool:
+    """Two losses or grad norms equal: f32 device scalars or host floats,
+    read back exactly (NaN where a trace has none)."""
+    a, b = float(a), float(b)
+    return a == b or (math.isnan(a) and math.isnan(b))
 
 
 def dist_main(cfg, model, batch, B, S):
@@ -1671,11 +1715,13 @@ def sup_fp8(cfg, device, root):
 
 
 def sup_phases(cfg, phase):
-    """Phases 20a-20e in a temporary work dir, removed at the end."""
+    """Phases 20a-20e, then the pipeline phases 21a-21d, in a temporary
+    work dir, removed at the end."""
     import shutil
     import tempfile
     import torch
     dev = torch.device("cuda")
+    full = cfg
     cfg = dataclasses.replace(cfg, n_layers=SUP_LAYERS)
     root = tempfile.mkdtemp(prefix="chip_smoke_supervise_")
     out = {}
@@ -1691,8 +1737,225 @@ def sup_phases(cfg, phase):
         out["late_bug"] = phase("sup_late_bug",
                                 lambda: sup_late_bug(cfg, dev, root))
         out["fp8"] = phase("sup_fp8", lambda: sup_fp8(cfg, dev, root))
+        out["pp"] = pp_phases(full, cfg, dev, root, phase)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phases 21a-21d: the pipeline candidates (staged and 1F1B, stages emulated
+# on the one card) of full-width gpt-paper, their bugs, and the Supervisor
+# ---------------------------------------------------------------------------
+
+def pp_model(cfg, device):
+    """Phase 4's full-width model and batch, made anew (seed 0)."""
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.models.model import Model
+    B, S = SUP_BATCH
+    return (Model(cfg, seed=0, device=device),
+            make_batch(cfg, B, S, seed=0, device=device))
+
+
+def pp_check(cfg, model, batch, kw, bugs=()):
+    """``dist_check`` of a pipeline candidate, with the card's memory."""
+    import torch
+    res, stats, run = dist_check(cfg, model, batch, kw, bugs)
+    stats["card_gib"] = (torch.cuda.get_device_properties(model.device)
+                         .total_memory / 2**30
+                         if model.device.type == "cuda" else None)
+    log(f"pp {kw} bugs {sorted(bugs)}: {'PASS' if res.passed else 'FAIL'}, "
+        f"largest rel-err / threshold {stats['worst']:.4f}, peak "
+        f"{stats['peak_gib']} GiB of {stats['card_gib']} GiB")
+    return res, stats, run
+
+
+def pp_staged(cfg, device):
+    """21a: the staged candidate at pp 4 and pp 5 must PASS."""
+    from repro_torch.parallel.pp import stage_division
+    model, batch = pp_model(cfg, device)
+    B, S = SUP_BATCH
+    out = {}
+    for pp in PP_STAGED:
+        log(f"pp {pp} stages {stage_division(cfg.n_layers, pp)}")
+        res, stats, _ = pp_check(cfg, model, batch, dict(pp=pp))
+        dist_verdict(f"pp{pp}", res, stats, cfg, B, S)
+        out[pp] = stats
+    return out
+
+
+def pp_engine_runs(cfg, model, batch, bugs=()):
+    """The 1F1B engine's own runs over ``model``'s parameters: the
+    concurrent and the ordered drive and a rerun, timed; returns the
+    engine and its traces."""
+    import torch
+    from repro_torch.core.collector import named_params
+    from repro_torch.parallel.pp1f1b import PP1F1BEngine
+    params = {k: p.detach() for k, p in named_params(model).items()}
+    out = {}
+    for name, dispatch in (("concurrent", "concurrent"),
+                           ("ordered", "ordered"),
+                           ("rerun", "concurrent")):
+        if name != "rerun":
+            eng = PP1F1BEngine(model, PP_1F1B["pp"], PP_1F1B["microbatches"],
+                               bugs=frozenset(bugs), dispatch=dispatch,
+                               device=model.device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr, grads, rep = eng.collect(params, batch)
+        torch.cuda.synchronize()
+        out[name] = dict(trace=tr, grads=grads, report=rep,
+                         seconds=time.perf_counter() - t0,
+                         order=list(eng.last_order),
+                         max_stash=list(eng.max_stash))
+    return eng, params, out
+
+
+def pp_1f1b(cfg, device):
+    """21b: the 1F1B candidate at pp 4 x M 4 must PASS through the user's
+    entry point; the engine's per-stage op order is ``stage_op_stream``,
+    its merge report is clean, its stash bounded, a rerun and the ordered
+    drive are bit-identical, and the plan merge equals
+    ``merge_microbatch_traces`` of the same records bit for bit."""
+    import torch
+    from repro_torch.core.merger import MergePlan, merge_microbatch_traces
+    from repro_torch.parallel.pp1f1b import stage_op_stream
+    model, batch = pp_model(cfg, device)
+    B, S = SUP_BATCH
+    res, stats, _ = pp_check(cfg, model, batch, PP_1F1B)
+    dist_verdict("pp_1f1b", res, stats, cfg, B, S)
+    del res
+    pp, M = PP_1F1B["pp"], PP_1F1B["microbatches"]
+    eng, params, runs = pp_engine_runs(cfg, model, batch)
+    for name, r in runs.items():
+        if not r["report"].ok:
+            raise AssertionError(f"{name}: merge report "
+                                 f"{r['report'].problems()}")
+        for s in range(pp):
+            ops = [op for op in r["order"] if op[1] == s]
+            if ops != stage_op_stream(pp, s, M):
+                raise AssertionError(f"{name}: stage {s} ran {ops}")
+            if r["max_stash"][s] > pp - s:
+                raise AssertionError(f"{name}: stage {s} stashed "
+                                     f"{r['max_stash'][s]} inputs")
+    for name in ("ordered", "rerun"):
+        diffs = bit_identical(runs["concurrent"]["trace"], runs[name]["trace"])
+        if diffs or not all(torch.equal(runs["concurrent"]["grads"][n],
+                                        runs[name]["grads"][n])
+                            for n in runs[name]["grads"]):
+            raise AssertionError(f"{name} differs from the concurrent drive "
+                                 f"in {diffs[:5]} or its grads")
+    recs, _ = eng.run_schedule(params, batch)
+    full, _ = merge_microbatch_traces(recs, eng.tables, M)
+    planned, _ = MergePlan.build(recs, eng.tables, M).execute(recs)
+    # the merges carry no loss: the engine's trace is held section by section
+    diffs = bit_identical(full, planned) + [
+        d for d in bit_identical(full, runs["concurrent"]["trace"])
+        if d != "loss or grad norm"]
+    if diffs:
+        raise AssertionError(f"plan merge differs from the full merge in "
+                             f"{diffs[:5]}")
+    seconds = {k: r["seconds"] for k, r in runs.items()}
+    log(f"pp_1f1b engine: per-stage order == stage_op_stream, stash "
+        f"{runs['concurrent']['max_stash']}, merge report ok; ordered drive,"
+        f" rerun and the full merge bit-identical; engine collect seconds "
+        f"{json.dumps(seconds)}")
+    return dict(stats, engine_seconds=seconds,
+                max_stash=runs["concurrent"]["max_stash"])
+
+
+def pp_controls(cfg, device):
+    """21c: each pp bug must FAIL where it should; the microbatch-order
+    bug leaves the forward and the loss byte-identical to the clean
+    engine's and is caught in the gradient sections only."""
+    import fnmatch
+    import torch
+    model, batch = pp_model(cfg, device)
+    out = {}
+    for bug, kw, want in PP_CONTROLS:
+        res, stats, _ = pp_check(cfg, model, batch, kw, bugs=(bug,))
+        loc = res.localized_module
+        flagged = sorted({r.kind for r in res.report.records if r.flagged})
+        log(f"pp_control {bug}: {'PASS' if res.passed else 'FAIL'}, "
+            f"localized {loc!r}, flagged kinds {flagged}")
+        if res.passed:
+            raise AssertionError(f"{bug} under {kw} passed")
+        if want is not None and not (loc and fnmatch.fnmatchcase(loc, want)):
+            raise AssertionError(f"{bug}: localized {loc!r}, want {want!r}")
+        if want is None and "activation" in flagged:
+            raise AssertionError(f"{bug}: an activation flagged")
+        out[bug] = dict(stats, localized=loc, flagged_kinds=flagged)
+        del res
+    # pp_microbatch_order: the forward and the loss byte-identical
+    _, _, clean = pp_engine_runs(cfg, model, batch)
+    _, _, bad = pp_engine_runs(cfg, model, batch,
+                               bugs=("pp_microbatch_order",))
+    tc, tb = clean["concurrent"]["trace"], bad["concurrent"]["trace"]
+    same = (list(tc.activations) == list(tb.activations)
+            and all(torch.equal(tc.activations.raw(n), tb.activations.raw(n))
+                    for n in tc.activations)
+            and torch.equal(tc.loss, tb.loss))
+    if not same:
+        raise AssertionError("pp_microbatch_order changed the forward")
+    log("pp_microbatch_order: activations and loss byte-identical to the "
+        "clean engine's")
+    return out
+
+
+def sup_pp(cfg, device, root):
+    """21d: the pp-1f1b recipe supervised for 4 steps PASSes each; the CLI's
+    staged pp recipe under pp_wrong_stage_division flags at step 0."""
+    sup, res, stats = sup_run(cfg, device, os.path.join(root, "pp"), SUP_PP,
+                              steps=4, spill=False, ckpt_every=4)
+    log(f"pp-1f1b supervised: candidate {sup.candidate.name}, kind_scale "
+        f"{sup.pipe.kind_scale}, checkpoints {sup.keeper.steps}")
+    if not res.passed or len(res.checks) != 4:
+        raise AssertionError(f"pp-1f1b supervised run: passed={res.passed}")
+    if sup.candidate.name != "pp1f1b2x4" or sup.pipe.kind_scale != 2.0:
+        raise AssertionError("candidate name or kind_scale")
+    if stats["estimate_launches"] != 5 or sup.keeper.steps != [0]:
+        raise AssertionError(f"launches {stats['counts']}, checkpoints "
+                             f"{sup.keeper.steps}")
+    del sup, res
+    B, S = SUP_BATCH
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    argv = ["--arch", cfg.name, "--layers", str(cfg.n_layers), "--steps",
+            "4", "--batch", str(B), "--seq", str(S), "--recipe", "pp",
+            "--bug", "pp_wrong_stage_division", "--no-spill",
+            "--device", device.type, "--work-dir", os.path.join(root, "pp_cli")]
+    t0 = time.perf_counter()
+    cli = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.supervise", *argv],
+        capture_output=True, text=True, timeout=600, env=env, cwd=ROOT)
+    cli_s = time.perf_counter() - t0
+    lines = cli.stdout.strip().splitlines()
+    log(f"--- cli {' '.join(argv[:-4])}: rc {cli.returncode} in "
+        f"{cli_s:.2f} s\n" + "\n".join(lines[-12:]))
+    bad = [ln for ln in lines if "FIRST BAD STEP:" in ln]
+    loc = [ln for ln in lines if "localized:" in ln and "expected" in ln]
+    if (cli.returncode != 0 or not bad or bad[-1].split(":")[-1].strip()
+            != "0" or not loc or "-> localized: layers." not in
+            " ".join(loc[-1].split())):
+        raise AssertionError(f"cli pp run: rc {cli.returncode}\n"
+                             f"{cli.stdout[-3000:]}\n{cli.stderr[-3000:]}")
+    log(f"work dir holds {dir_gb(root):.3f} GB after the pp phases, "
+        f"{dir_gb(os.path.join(root, 'pp')):.3f} GB of them the supervised "
+        f"pp-1f1b run's and {dir_gb(os.path.join(root, 'pp_cli')):.3f} GB "
+        f"the CLI run's")
+    return dict(stats, cli_seconds=cli_s)
+
+
+def pp_phases(full, cfg, device, root, phase):
+    """Phases 21a-21c at full width, 21d at ``SUP_LAYERS``."""
+    import torch
+    out = {}
+    for name, fn in (("pp_staged", lambda: pp_staged(full, device)),
+                     ("pp_1f1b", lambda: pp_1f1b(full, device)),
+                     ("pp_controls", lambda: pp_controls(full, device)),
+                     ("sup_pp", lambda: sup_pp(cfg, device, root))):
+        out[name] = phase(name, fn)
         gc.collect()
         torch.cuda.empty_cache()
     return out

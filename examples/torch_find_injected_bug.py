@@ -3,7 +3,8 @@
 The counterpart of ``examples/find_injected_bug.py``: injects a bug from
 the registry (default: paper bug 1, the tensor-parallel vocab embedding's
 wrong ownership mask) into the port's manual-collectives distributed GPT,
-whose ranks are emulated in one process, then runs threshold estimation,
+whose ranks are emulated in one process (a ``pp_*`` bug into the staged
+or 1F1B pipeline, 2 stages), then runs threshold estimation,
 differential testing against the single-device model, and rewrite-mode
 localization.
 
@@ -33,16 +34,25 @@ def main():
     print(f"injecting: {args.bug_id} [{spec.btype}] — {spec.description}\n"
           f"  (paper analogue: {spec.paper_analogue})")
 
+    req = set(spec.requires)
+    # pipeline bugs need layers for two stages to disagree on
     cfg = dataclasses.replace(get_config("gpt-paper").reduced(),
-                              n_layers=2, vocab=512, tie_embeddings=True)
+                              n_layers=4 if "pp" in req else 2, vocab=512,
+                              tie_embeddings=True)
     model = Model(cfg, seed=0, device=args.device)
     opt = AdamW(lr=1e-3)
     batch = make_batch(cfg, 4, 32, seed=0, device=args.device)
 
-    req = set(spec.requires)
-    pcfg = ParallelConfig(dp=2, cp=2 if "cp" in req else 1, tp=2,
-                          sp="sp" in req, zero1="zero1" in req,
-                          bugs=frozenset([args.bug_id]))
+    bugs = frozenset([args.bug_id])
+    if "1f1b" in req:
+        pcfg = ParallelConfig(pp=2, pp_schedule="1f1b", microbatches=2,
+                              bugs=bugs)
+    elif "pp" in req:
+        pcfg = ParallelConfig(pp=2, bugs=bugs)
+    else:
+        pcfg = ParallelConfig(dp=2, cp=2 if "cp" in req else 1, tp=2,
+                              sp="sp" in req, zero1="zero1" in req,
+                              bugs=bugs)
 
     reference = make_model_runner(model, opt, device=args.device)
     candidate = make_candidate_runner(cfg, pcfg, model, opt,

@@ -4,10 +4,11 @@ The port keeps the reference's whole table (Table 1 taxonomy: W-CP wrong
 computation, W-CM wrong communication, M-CM missing communication), so its
 tests and ``chip_smoke.py`` read each bug's ``expected_module`` from here.
 Every entry but those in ``PENDING`` is injectable: ``fp8_stale_scale``
-through ``precision.fp8``, the rest through ``parallel`` (the distributed
-candidate).  ``PENDING`` names the ROADMAP item that brings each of the
-others; ``check_injectable`` refuses them rather than run a clean
-candidate under a bug's name.
+through ``precision.fp8``, the three ``pp_*`` bugs through the pipeline
+candidates (``parallel.pp``, ``parallel.pp1f1b``), the rest through
+``parallel.api`` (the distributed candidate).  ``PENDING`` names the
+ROADMAP item that brings each of the others; ``check_injectable`` refuses
+them rather than run a clean candidate under a bug's name.
 """
 from __future__ import annotations
 
@@ -119,9 +120,6 @@ def available_for(features: set[str]) -> list[BugSpec]:
 
 # the recipes these bugs live in are not ported yet
 PENDING: dict[str, str] = {
-    "pp_wrong_stage_division": "ROADMAP A7 (pipeline parallelism)",
-    "pp_microbatch_order": "ROADMAP A7 (pipeline parallelism)",
-    "pp_stale_boundary": "ROADMAP A7 (pipeline parallelism)",
     "moe_router_not_synced": "ROADMAP A9 (MoE)",
 }
 

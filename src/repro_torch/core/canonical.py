@@ -1,9 +1,14 @@
-"""Canonical tensor identifiers (paper §4.1); copy of ``repro/core/canonical.py``.
+"""Canonical tensor identifiers and pipeline layer-index mapping (paper
+§4.1); copy of ``repro/core/canonical.py``.
 
 A tensor is uniquely identified inside a trace by
-``CanonicalId(iteration, microbatch, kind, module, role)``.  The seed that
-``CanonicalId.seed`` derives must equal the reference's bit for bit: the
-consistent tensor generator hashes it, so rewrites match across packages.
+``CanonicalId(iteration, microbatch, kind, module, role)``, where
+``module`` is the *canonical* module name: local layer indices assigned by
+pipeline parallelism (PP) and virtual/interleaved pipeline parallelism
+(VPP) are mapped back to the reference model's global layer indices (paper
+Fig 5) before naming.  The seed that ``CanonicalId.seed`` derives must
+equal the reference's bit for bit: the consistent tensor generator hashes
+it, so rewrites match across packages.
 """
 from __future__ import annotations
 
@@ -44,3 +49,60 @@ def tap_to_id(tap_name: str, kind: str, iteration: int = 0,
     else:
         module, role = tap_name, "value"
     return CanonicalId(iteration, microbatch, kind, module, role)
+
+
+# ---------------------------------------------------------------------------
+# PP / VPP layer-index mapping (paper Fig 5)
+# ---------------------------------------------------------------------------
+#
+# Megatron interleaved schedule: the model's L layers are cut into
+# pp_size * vpp_size contiguous chunks of ``L / (pp*vpp)`` layers.  Chunk
+# (vpp_rank, pp_rank) holds global layers starting at
+#     vpp_rank * pp_size * cpl  +  pp_rank * cpl
+# Each stage numbers its local layers 0..(L/pp - 1) across its vpp chunks.
+
+
+def chunk_layers(n_layers: int, pp_size: int, vpp_size: int) -> int:
+    if n_layers % (pp_size * vpp_size) != 0:
+        raise ValueError(
+            f"{n_layers} layers not divisible by pp{pp_size} x vpp{vpp_size}")
+    return n_layers // (pp_size * vpp_size)
+
+
+def canonical_layer_index(local_idx: int, pp_rank: int, pp_size: int,
+                          vpp_rank: int, vpp_size: int, n_layers: int) -> int:
+    """Map a stage-local layer index to the reference (global) layer index.
+
+    ``local_idx`` counts layers *within the (pp_rank, vpp_rank) chunk* —
+    Megatron gives each virtual chunk its own offset-free numbering, which is
+    exactly the ambiguity the canonical name resolves (paper Fig 5).
+    """
+    if not (0 <= pp_rank < pp_size and 0 <= vpp_rank < vpp_size):
+        raise ValueError("rank out of range")
+    cpl = chunk_layers(n_layers, pp_size, vpp_size)
+    if not (0 <= local_idx < cpl):
+        raise ValueError(f"local layer {local_idx} outside chunk of {cpl}")
+    return vpp_rank * pp_size * cpl + pp_rank * cpl + local_idx
+
+
+def local_layer_index(global_idx: int, pp_size: int, vpp_size: int,
+                      n_layers: int) -> tuple[int, int, int]:
+    """Inverse of ``canonical_layer_index``: -> (pp_rank, vpp_rank, local_idx)."""
+    cpl = chunk_layers(n_layers, pp_size, vpp_size)
+    chunk = global_idx // cpl
+    vpp_rank, pp_rank = divmod(chunk, pp_size)
+    return pp_rank, vpp_rank, global_idx % cpl
+
+
+def canonicalize_module(module: str, pp_rank: int, pp_size: int,
+                        vpp_rank: int = 0, vpp_size: int = 1,
+                        n_layers: int | None = None,
+                        layer_key: str = "layers.") -> str:
+    """Rewrite ``layers.<local>`` inside a module path to the global index."""
+    if layer_key not in module or pp_size * vpp_size == 1:
+        return module
+    pre, rest = module.split(layer_key, 1)
+    num, dot, tail = rest.partition(".")
+    gidx = canonical_layer_index(int(num), pp_rank, pp_size, vpp_rank,
+                                 vpp_size, n_layers)
+    return f"{pre}{layer_key}{gidx}{dot}{tail}"

@@ -197,10 +197,13 @@ def compare_traces(ref: Trace, cand: Trace, thr: Thresholds,
                    kinds=DEFAULT_KINDS) -> Report:
     """Differential check of two traces (paper §3 step 4): one metadata pass,
     then ONE batched reduction over every comparable pair of every
-    requested section, then threshold comparison + localization."""
+    requested section, then threshold comparison + localization.  The
+    candidate's per-rank merge problems (``meta['merge_report']``) fail the
+    report on their own."""
     entries, la, lb, missing = collect_section_pairs(ref, cand, kinds)
     errs = _to_rel_err(section_sq_norms(la, lb))
-    return report_from_errs(entries, errs, thr, missing=missing)
+    return report_from_errs(entries, errs, thr, missing=missing,
+                            merge_problems=merge_problems_of(cand))
 
 
 def localize_with_rewrites(run_ref, run_cand, batch, ref_trace: Trace,

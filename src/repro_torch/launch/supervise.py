@@ -3,16 +3,25 @@ port of ``repro/launch/supervise.py``, with the same flags and recipe names.
 
     PYTHONPATH=src python -m repro_torch.launch.supervise --arch \
         tinyllama-1.1b --reduced --steps 8 --bug zero_skipped_update
+    # recipe-generic: pipeline-parallel / FP8 candidates, same workflow
+    PYTHONPATH=src python -m repro_torch.launch.supervise --recipe pp \
+        --reduced --steps 8 --bug pp_wrong_stage_division
     PYTHONPATH=src python -m repro_torch.launch.supervise \
         --recipe fp8-tile128 --reduced --steps 8 --bug fp8_stale_scale
 
+    # the 1F1B pipeline: per-stage parameter leaves, microbatched schedule,
+    # per-rank traces merged before checking (stages emulated on one card)
+    PYTHONPATH=src python -m repro_torch.launch.supervise --recipe pp-1f1b \
+        --pp 4 --microbatches 4 --reduced --layers 8 --steps 8 \
+        --bug pp_stale_boundary
+
 Runs the single-device reference and the candidate recipe (the
-distributed dense/ZeRO-1 candidate on emulated ranks, or FP8 — with any
-injected registry bug) in lockstep on one card, checking every step online
-through the async pipeline; on a flag the run is bisected to the first
-bad step and the bug is localized.  ``--device cpu`` runs on the CPU.  The
-``moe``, ``pp`` and ``pp-1f1b`` recipes are not ported yet and refuse
-(ROADMAP A9, A7).
+distributed dense/ZeRO-1 candidate on emulated ranks, the staged or 1F1B
+pipeline, or FP8 — with any injected registry bug) in lockstep on one
+card, checking every step online through the async pipeline; on a flag
+the run is bisected to the first bad step and the bug is localized.
+``--device cpu`` runs on the CPU.  The ``moe`` recipe is not ported yet
+and refuses (ROADMAP A9).
 
 On the card the run is deterministic, so that a ``--resume`` of a killed
 run, a bisection replay and an uninterrupted run agree bit for bit:
@@ -30,9 +39,12 @@ import sys
 RECIPES = ("dense", "moe", "zero1", "pp", "pp-1f1b",
            "fp8-global", "fp8-per_tensor", "fp8-tile128")
 # the recipes of the reference the port does not run yet
-NOT_PORTED = {"moe": "ROADMAP A9 (MoE)",
-              "pp": "ROADMAP A7 (pipeline parallelism)",
-              "pp-1f1b": "ROADMAP A7 (pipeline parallelism)"}
+NOT_PORTED = {"moe": "ROADMAP A9 (MoE)"}
+
+# each non-shard_map recipe's OWN injectable feature set: a bug that doesn't
+# intersect it would be a silent no-op under that recipe
+_RECIPE_FEATURES = {"pp": {"pp"}, "pp-1f1b": {"pp", "1f1b"},
+                    "fp8": {"fp8"}}
 
 
 def deterministic_mode() -> None:
@@ -67,7 +79,7 @@ def build_pcfg(args, requires: set):
                     f"--recipe {args.recipe} was given")
             recipe = forced
     _refuse_unported(recipe)
-    if recipe.startswith("fp8"):
+    if recipe.startswith(("pp", "fp8")):
         # refuse explicit shard_map flags instead of silently dropping them
         ignored = [f for f, on in (("--dp", args.dp is not None),
                                    ("--cp", args.cp is not None),
@@ -78,12 +90,33 @@ def build_pcfg(args, requires: set):
             raise SystemExit(f"recipe {recipe!r} cannot combine with "
                              f"shard_map flags — {' '.join(ignored)} "
                              f"cannot apply")
-        # ... and only express bugs of its own feature (a shard_map-side
-        # bug would be a silent no-op here)
-        if args.bug and "fp8" not in requires:
+        # ... and only express bugs that require their own feature (the pp
+        # candidates consult bugs for the stage division and the 1F1B
+        # schedule, fp8 for the cast; a shard_map-side bug would be a
+        # silent no-op here)
+        own = _RECIPE_FEATURES["fp8" if recipe.startswith("fp8")
+                               else recipe]
+        if args.bug and not (requires & own):
             raise SystemExit(
                 f"bug {args.bug!r} is not implemented by the {recipe!r} "
                 f"candidate — it injects into the shard_map path")
+    if recipe == "pp":
+        if args.pp < 2:
+            raise SystemExit("--recipe pp needs --pp >= 2 stages")
+        pcfg = ParallelConfig(pp=args.pp, bugs=bugs)
+    elif recipe == "pp-1f1b":
+        if args.pp < 2:
+            raise SystemExit("--recipe pp-1f1b needs --pp >= 2 stages")
+        if args.microbatches < 2:
+            raise SystemExit("--recipe pp-1f1b needs --microbatches >= 2 "
+                             "(one microbatch degenerates to the staged "
+                             "schedule)")
+        if args.batch % args.microbatches:
+            raise SystemExit(f"--batch {args.batch} is not divisible into "
+                             f"--microbatches {args.microbatches}")
+        pcfg = ParallelConfig(pp=args.pp, pp_schedule="1f1b",
+                              microbatches=args.microbatches, bugs=bugs)
+    elif recipe.startswith("fp8"):
         pcfg = ParallelConfig(fp8=recipe.split("-", 1)[1], bugs=bugs)
     else:
         cp = args.cp if args.cp is not None else (2 if "cp" in requires
@@ -110,9 +143,10 @@ def parse_args(argv=None):
                     help="arch config name (default tinyllama-1.1b)")
     ap.add_argument("--recipe", default=None, choices=RECIPES,
                     help="candidate recipe: dense/zero1 (distributed on "
-                         "emulated ranks) or an fp8 scaling recipe (default "
-                         "dense; a --bug requiring fp8 pulls that recipe "
-                         "in); moe, pp and pp-1f1b are not ported yet")
+                         "emulated ranks), pp (staged pipeline), pp-1f1b "
+                         "(1F1B pipeline) or an fp8 scaling recipe (default "
+                         "dense; a --bug requiring pp, 1f1b or fp8 pulls "
+                         "that recipe in); moe is not ported yet")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--layers", type=int, default=None,
                     help="override the arch's layer count")
@@ -236,7 +270,9 @@ def run(args):
     print(f"supervising {cfg.name} ({'reduced' if args.reduced else 'full'}) "
           f"over {args.steps} steps on {args.device}: recipe={recipe} "
           f"dp={pcfg.dp} cp={pcfg.cp} tp={pcfg.tp} sp={pcfg.sp} "
-          f"zero1={pcfg.zero1} fp8={pcfg.fp8} "
+          f"zero1={pcfg.zero1} pp={pcfg.pp} "
+          f"pp_schedule={pcfg.pp_schedule} microbatches={pcfg.microbatches} "
+          f"fp8={pcfg.fp8} "
           f"async_window={args.async_window} check_every={args.check_every} "
           f"reestimate_every={args.reestimate_every}", flush=True)
     if spec:

@@ -108,6 +108,16 @@ class Embedding(nn.Module):
             (0.02 * torch.randn(vocab, d_model, generator=gen)).to(dtype))
 
 
+def embed_tokens(w, tokens, cdtype, ctx=None):
+    """The token embedding under the ``embedding`` scope, tapped as
+    ``embedding/output`` in the compute dtype (``w``: (vocab, d))."""
+    ctx = ensure_ctx(ctx)
+    with ctx.scope("embedding"):
+        h = F.embedding(tokens, w)
+        h = ctx.tap("output", h.to(cdtype))
+    return h
+
+
 class Model(nn.Module):
     """Parameters are drawn from a ``torch.Generator`` seeded with ``seed``
     (on the CPU, so one seed gives one model on every device) and live on
@@ -136,11 +146,8 @@ class Model(nn.Module):
         return self.final_norm.device
 
     def embed(self, batch, ctx=None):
-        ctx = ensure_ctx(ctx)
-        with ctx.scope("embedding"):
-            h = F.embedding(batch["tokens"], self.embedding.word_embeddings)
-            h = ctx.tap("output", h.to(self.cdtype))
-        return h
+        return embed_tokens(self.embedding.word_embeddings, batch["tokens"],
+                            self.cdtype, ctx)
 
     def apply_blocks(self, h, ctx=None, use_kernel=False, precision=None):
         ctx = ensure_ctx(ctx)

@@ -63,7 +63,8 @@ class ParallelConfig:
     def n_devices(self):
         # staged pp and fp8 are single-controller candidate recipes — they
         # model semantics (stage division, quantization), not placement;
-        # the 1F1B engine places one pipeline stage per device
+        # the reference's 1F1B engine places one pipeline stage per device
+        # (the port's emulates its stages on one)
         base = self.dp * self.cp * self.tp
         if self.pp > 1 and self.pp_schedule == "1f1b":
             return base * self.pp
@@ -211,7 +212,7 @@ def reduce_act_grads(mesh: Mesh, ag: dict, ann: Annotations,
 
 
 # ---------------------------------------------------------------------------
-# Recipe dispatch (the fp8 candidate; pp waits for ROADMAP A7)
+# Recipe dispatch (pp / 1F1B / fp8 candidates share the supervisor contract)
 # ---------------------------------------------------------------------------
 
 def _check_recipe_pcfg(cfg, pcfg: ParallelConfig) -> None:
@@ -238,10 +239,6 @@ def _check_recipe_pcfg(cfg, pcfg: ParallelConfig) -> None:
 def _recipe_model(cfg, pcfg: ParallelConfig, ref_params, device):
     """The recipe candidate's own ``Model`` holding ``ref_params``."""
     _check_recipe_pcfg(cfg, pcfg)
-    if pcfg.recipe_kind in ("pp", "pp_1f1b"):
-        raise NotImplementedError(
-            f"the {pcfg.recipe_kind} candidate is not ported yet "
-            f"(ROADMAP A7)")
     from repro_torch.core.collector import load_params, named_params
     from repro_torch.models.model import Model
     model = Model(cfg, device=device)
@@ -252,15 +249,32 @@ def _recipe_model(cfg, pcfg: ParallelConfig, ref_params, device):
 
 def _recipe_runner(cfg, pcfg: ParallelConfig, ref_params: dict, opt,
                    opt_state, device):
-    from repro_torch.precision.fp8 import make_fp8_runner
     model = _recipe_model(cfg, pcfg, ref_params, device)
+    if pcfg.recipe_kind == "pp":
+        from repro_torch.parallel.pp import make_pp_runner
+        return make_pp_runner(model, pcfg.pp, opt=opt, opt_state=opt_state,
+                              bugs=pcfg.bugs, device=device)
+    if pcfg.recipe_kind == "pp_1f1b":
+        from repro_torch.parallel.pp1f1b import make_pp1f1b_runner
+        return make_pp1f1b_runner(model, pcfg.pp, pcfg.microbatches,
+                                  opt=opt, opt_state=opt_state,
+                                  bugs=pcfg.bugs, device=device)
+    from repro_torch.precision.fp8 import make_fp8_runner
     return make_fp8_runner(model, pcfg.fp8, opt=opt, opt_state=opt_state,
                            bugs=pcfg.bugs, device=device)
 
 
 def _recipe_train_step(cfg, pcfg: ParallelConfig, ref_params, opt, device):
-    from repro_torch.precision.fp8 import make_fp8_train_step
     model = _recipe_model(cfg, pcfg, ref_params, device)
+    if pcfg.recipe_kind == "pp":
+        from repro_torch.parallel.pp import make_pp_train_step
+        return make_pp_train_step(model, opt, pcfg.pp, bugs=pcfg.bugs,
+                                  device=device)
+    if pcfg.recipe_kind == "pp_1f1b":
+        from repro_torch.parallel.pp1f1b import make_pp1f1b_train_step
+        return make_pp1f1b_train_step(model, opt, pcfg.pp, pcfg.microbatches,
+                                      bugs=pcfg.bugs, device=device)
+    from repro_torch.precision.fp8 import make_fp8_train_step
     return make_fp8_train_step(model, opt, pcfg.fp8, bugs=pcfg.bugs,
                                device=device)
 
@@ -483,7 +497,7 @@ def make_candidate_runner(cfg, pcfg: ParallelConfig, ref_params, opt=None,
                           opt_state=None, device="cuda"):
     """Build ``runner(batch, rewrites) -> Trace`` for the candidate recipe:
     the distributed GPT on emulated ranks, or (dispatching on ``pcfg``) the
-    FP8 candidate.
+    staged pipeline, the 1F1B pipeline or the FP8 candidate.
 
     ``ref_params``: the reference's parameters, a port ``Model`` or
     ``{flat name: tensor or numpy array}``; a run never changes them.
@@ -531,8 +545,9 @@ def make_candidate_train_step(cfg, pcfg: ParallelConfig, ref_params, opt,
     Returns ``(step, params0, opt_state0)`` with ``step(params, opt_state,
     batch) -> (Trace, new_params, new_opt_state)``.  Nothing is updated in
     place, and ``trace.loss`` / ``trace.grad_norm`` stay device tensors.
-    Dispatches on ``pcfg.recipe_kind``: the FP8 candidate returns its own
-    step under the same contract (``precision.fp8``)."""
+    Dispatches on ``pcfg.recipe_kind``: the pipeline and FP8 candidates
+    return their own steps under the same contract (``parallel.pp``,
+    ``parallel.pp1f1b``, ``precision.fp8``)."""
     dev = resolve_device(device)
     check_injectable(pcfg.bugs, pcfg.features)
     if pcfg.recipe_kind != "shard_map":

@@ -23,10 +23,10 @@ to start the steady-state clock):
 The candidate side is RECIPE-GENERIC: ``CandidateStep`` is the contract —
 a stateful train step plus a runner factory for rewrite-mode localization
 and the recipe's machine epsilon — and ``CandidateStep.build`` dispatches
-on the ``ParallelConfig`` to the distributed candidate (dense / ZeRO-1)
-or the FP8 recipes (``precision.fp8``, checked under BF16 epsilon per
-paper §6.7); the pipeline and MoE candidates are not ported yet (ROADMAP
-A7, A9) and raise.
+on the ``ParallelConfig`` to the distributed candidate (dense / ZeRO-1),
+the staged or 1F1B pipeline (``parallel.pp``, ``parallel.pp1f1b``), or
+the FP8 recipes (``precision.fp8``, checked under BF16 epsilon per paper
+§6.7); the MoE candidate is not ported yet (ROADMAP A9) and raises.
 
 With ``reestimate_every=R`` the supervised loop additionally re-runs the
 fused pair-step threshold estimate on the live batch every R steps and
@@ -44,6 +44,7 @@ a single snapshot.
 """
 from __future__ import annotations
 
+import math
 import os
 import tempfile
 import time
@@ -105,7 +106,7 @@ class CandidateStep:
     @classmethod
     def build(cls, cfg, pcfg: ParallelConfig, params, opt,
               device="cuda") -> "CandidateStep":
-        """Dispatch on ``pcfg`` (distributed / fp8; pp raises) via
+        """Dispatch on ``pcfg`` (distributed / pp / 1F1B / fp8) via
         ``parallel.api``.  The recipe's epsilon is widened to the model's
         compute dtype: a perturbation at f32 epsilon vanishes in a bf16
         activation, and its estimate would be the floor."""
@@ -114,12 +115,21 @@ class CandidateStep:
         eps = max(MACHINE_EPS["float8_e4m3fn"] if pcfg.fp8
                   else MACHINE_EPS["float32"],
                   MACHINE_EPS[cfg.compute_dtype])
-        name = "fp8-" + pcfg.fp8 if pcfg.fp8 else "shard_map"
+        kind_scale = 1.0
+        if pcfg.recipe_kind == "pp_1f1b":
+            name = f"pp1f1b{pcfg.pp}x{pcfg.microbatches}"
+            kind_scale = max(2.0, math.sqrt(pcfg.microbatches))
+        elif pcfg.fp8:
+            name = "fp8-" + pcfg.fp8
+        elif pcfg.pp > 1:
+            name = f"pp{pcfg.pp}"
+        else:
+            name = "shard_map"
         return cls(
             step=step, params0=p0, opt_state0=s0,
             make_runner=lambda p, s: make_candidate_runner(
                 cfg, pcfg, p, opt, s, device=device),
-            eps=eps, name=name)
+            eps=eps, name=name, kind_scale=kind_scale)
 
 
 @dataclass

@@ -44,7 +44,9 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
             "repro_torch.supervise.pipeline", "repro_torch.supervise.store",
             "repro_torch.supervise.bisect", "repro_torch.supervise.journal",
             "repro_torch.supervise.watchdog", "repro_torch.supervise.faults",
-            "repro_torch.launch.supervise"} <= set(mods)
+            "repro_torch.launch.supervise", "repro_torch.parallel.pp",
+            "repro_torch.parallel.pp1f1b", "repro_torch.core.merger",
+            "repro_torch.core.canonical"} <= set(mods)
     code = ("import sys\n"
             + "".join(f"import {m}\n" for m in mods)
             + f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "

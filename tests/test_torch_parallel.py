@@ -42,7 +42,8 @@ CLEAN = {"dp2tp2": dict(dp=2, tp=2), "dp2tp2sp": dict(dp=2, tp=2, sp=True),
 # tests/test_bug_coverage_matrix.py's shard_map candidates, in its order
 MATRIX = [dict(dp=2, tp=2), dict(dp=2, tp=2, sp=True),
           dict(dp=2, cp=2, tp=2), dict(dp=2, zero1=True)]
-PARALLEL_BUGS = sorted(injectable() - {"fp8_stale_scale"})
+PARALLEL_BUGS = sorted(b for b in injectable() - {"fp8_stale_scale"}
+                       if "pp" not in BUGS[b].requires)
 LR = 1e-3
 
 
@@ -138,23 +139,26 @@ def test_bug_gives_jax_verdict_and_module(forced_devices, host_outputs,
     assert tres.localized_module == jres.localized_module
 
 
-def test_injectable_bugs_are_the_reference_registry_minus_pp_and_moe():
-    expected = {b for b in JAX_BUGS
-                if not b.startswith("pp_") and b != "moe_router_not_synced"}
+def test_injectable_bugs_are_the_reference_registry_minus_moe():
+    expected = {b for b in JAX_BUGS if b != "moe_router_not_synced"}
     assert injectable() == expected
     assert set(BUGS) == set(JAX_BUGS)
     assert set(PENDING) == set(JAX_BUGS) - expected
     assert len(PARALLEL_BUGS) == 13
 
 
-@pytest.mark.parametrize("bug_id,kw", [
-    ("pp_stale_boundary", dict(pp=2, pp_schedule="1f1b", microbatches=2)),
-    ("pp_wrong_stage_division", dict(pp=2)),
-    ("moe_router_not_synced", dict(tp=2)),
+@pytest.mark.parametrize("bug_id,kw,exc,match", [
+    ("pp_stale_boundary", dict(pp=2, pp_schedule="1f1b", microbatches=2,
+                               tp=2), ValueError, "cannot combine"),
+    ("pp_wrong_stage_division", dict(pp=2, microbatches=2), ValueError,
+     "1F1B pipeline only"),
+    ("moe_router_not_synced", dict(tp=2), NotImplementedError, "ROADMAP A9"),
 ])
-def test_pending_bugs_are_refused_loudly(bug_id, kw):
+def test_pending_bugs_are_refused_loudly(bug_id, kw, exc, match):
+    """The one pending bug refuses; the pp candidate refuses its own bad
+    configs (with tp, and microbatches without 1F1B) before any run."""
     _, tcfg = configs("gpt-paper")
-    with pytest.raises(NotImplementedError, match="ROADMAP A[79]"):
+    with pytest.raises(exc, match=match):
         make_candidate_runner(tcfg, ParallelConfig(bugs=frozenset([bug_id]),
                                                    **kw),
                               jax_setup("gpt-paper")[3], device="cpu")
@@ -167,8 +171,11 @@ def test_unexpressible_bug_and_pp_recipe_are_refused():
         make_candidate_runner(tcfg, ParallelConfig(
             dp=2, tp=2, bugs=frozenset(["cp_wrong_loss_scale"])), named,
             device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        make_candidate_runner(tcfg, ParallelConfig(pp=2), named, device="cpu")
+    # the staged pp candidate cannot express a 1F1B schedule bug
+    with pytest.raises(ValueError, match="needs"):
+        make_candidate_runner(tcfg, ParallelConfig(
+            pp=2, bugs=frozenset(["pp_microbatch_order"])), named,
+            device="cpu")
 
 
 def test_fp8_recipe_dispatches_to_the_fp8_runner():

@@ -246,6 +246,7 @@ def test_late_visible_bug_matches_the_jax_supervisor(forced_devices,
 
 MATRIX = [dict(dp=2, tp=2), dict(dp=2, tp=2, sp=True),
           dict(dp=2, cp=2, tp=2), dict(dp=2, zero1=True),
+          dict(pp=2), dict(pp=2, pp_schedule="1f1b", microbatches=2),
           dict(fp8="tile128")]
 
 
@@ -254,8 +255,11 @@ def test_bug_flagged_and_localized_under_supervision(tmp_path, bug):
     spec = BUGS[bug]
     kw = next(k for k in MATRIX
               if set(spec.requires) <= ParallelConfig(**k).features)
+    # the reference's matrix: pipeline recipes at 4 layers and B 4
+    pp = "pp" in spec.requires
     res = port_supervisor(tmp_path, bugs=[bug], pcfg_kw=kw, steps=3,
-                          ckpt_every=2).run()
+                          ckpt_every=2, n_layers=4 if pp else 2,
+                          B=4 if pp else 2).run()
     assert res.flagged and res.first_bad_step is not None, res.summary()
     loc = res.localized_module or "-"
     assert (spec.expected_module == "loss"

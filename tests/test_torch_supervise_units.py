@@ -590,14 +590,19 @@ def test_nan_fault_poisons_the_first_activation(pkg):
     ["--fault-step", "3"],
     ["--resume"],
     ["--recipe", "moe"],
-    ["--recipe", "pp"],
-    ["--recipe", "pp-1f1b"],
-    ["--bug", "pp_stale_boundary"],
+    ["--recipe", "pp", "--pp", "1"],
+    ["--recipe", "pp-1f1b", "--microbatches", "1"],
+    ["--recipe", "pp", "--tp", "2"],
 ])
 def test_cli_refuses(argv):
     from repro_torch.launch import supervise as cli
     with pytest.raises(SystemExit) as ei:
         cli.main(argv + ["--device", "cpu"])
     assert ei.value.code not in (0, None)
-    if "moe" in argv or "pp" in argv or "pp-1f1b" in argv:
+    if "moe" in argv:
         assert "ROADMAP A" in str(ei.value.code)
+    if "pp" in argv or "pp-1f1b" in argv:
+        # the reference CLI's own pipeline refusals
+        assert any(w in str(ei.value.code) for w in (
+            "needs --pp >= 2", "needs --microbatches >= 2",
+            "cannot combine with shard_map flags"))
