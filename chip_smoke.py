@@ -185,10 +185,47 @@ prints no result line):
              kind_scale 2; ``python -m repro_torch.launch.supervise
              --recipe pp --bug pp_wrong_stage_division`` for 4 steps must
              flag with first bad step 0 at a ``layers.*`` module.
+22a. moe_main (22a-22d run last, with every earlier model freed) —
+             ``mixtral-8x7b`` at its published width (d 4096, 32 heads of
+             128, kv 8, 8 experts of d_ff 14336, top 2, capacity factor 2,
+             swa window 4096, vocab 32000), cut to 1 layer with tied
+             embeddings for memory (``MOE_LAYERS``), B 1 x S 4096, seed 0,
+             bf16 thresholds: first the reckoning behind the tied
+             embeddings (the untied model's traced reference step and
+             clean tp2 check, their peak memory), then one traced
+             reference step of the tied model alone (its seconds, peak
+             memory and section sizes); then the
+             expert-parallel candidates tp2 and tp2 sp must PASS against
+             the plain model, the rel-err kernel launched on the estimate
+             and on the compare and no other; prints the margin, each
+             step's seconds, the peak memory, capacity drops in the
+             reference and the candidate, and the tokens whose top-2 (and
+             kept) expert set differs between reference and candidate and
+             between the estimate's base and perturbed runs; a second tp2
+             run must give a bit-identical trace;
+22b. moe_control — ``moe_router_not_synced`` at tp2: measured to PASS
+             under bf16 thresholds at this width (every threshold is at
+             least 12.5% relative; the drift moves the MoE output by about
+             1%), so the phase asserts that verdict and that the bug
+             expresses (the output differs from the clean tp2
+             candidate's); the same control dropless is printed beside;
+22c. moe_flash — the flash candidate (``loss(use_kernel=True)``) of the
+             same model at B 1 x S 8192, where the window drops keys, must
+             PASS against ``attention_blockwise``, one swa launch at window
+             4096 per candidate run; then the kernel alone at that shape
+             against its plain version (within 2^-6 relative + 4e-5), per
+             launch with the card held busy, its plain version and
+             ``scaled_dot_product_attention`` with the sliding-window mask,
+             beside the bound;
+22d. moe_cli — ``python -m repro_torch.launch.supervise --recipe moe
+             --reduced --bug moe_router_not_synced`` (spill off) must flag
+             at step 0 with first bad step 0 at a ``layers.*.mlp`` module
+             (reduced: the CLI checkpoints both full-width states at step
+             0, some 44 GB, against the card machine's 45 GiB of writes).
 
 Every kernel's launch count is set to 0 just before each path (phases 4,
-8, 12, 13, 14, 15a, 15b, 15c, 17, 18, 20a-20e and 21a-21d) and read just
-after it.  At the end come the card's name and power
+8, 12, 13, 14, 15a, 15b, 15c, 17, 18, 20a-20e, 21a-21d and 22a-22c) and
+read just after it.  At the end come the card's name and power
 limit, then a ``{"kernels": [...]}`` JSON object, then the last line,
 ``{"ok": true, "device": {...}}``.
 """
@@ -296,6 +333,30 @@ SSM_SWEEP = tuple((2, 128, 2, dk, dv, chunk, scalar, excl)
                   for dk, dv, chunk in ((16, 16, 32), (8, 32, 16), (32, 16, 64))
                   for scalar, excl in ((True, False), (False, False),
                                        (False, True)))
+# the Mixture-of-Experts phases (22a-22d): mixtral-8x7b at its published
+# width (d 4096, 32 heads of 128, kv 8, 8 experts of d_ff 14336, top 2,
+# capacity factor 2, swa window 4096), cut from 32 layers to 1 for memory and
+# with the embeddings tied (the reference CLI ties them for every candidate
+# recipe); B 1 x S 4096, where the window equals the causal mask, so the
+# distributed candidate, whose attention is causal only, is faithful; the
+# expert-parallel candidates, the control and the flash candidate's length
+# (S 8192, where the window drops keys)
+MOE_ARCH = "mixtral-8x7b"
+MOE_LAYERS = 1
+MOE_TIED = True
+MOE_BATCH = (1, 4096)
+MOE_CANDIDATES = (("tp2", dict(tp=2)), ("tp2sp", dict(tp=2, sp=True)))
+MOE_CONTROL = ("moe_router_not_synced", dict(tp=2))
+MOE_FLASH_BATCH = (1, 8192)
+MOE_TAPS_PER_LAYER = 6       # attention input/core/output, mlp input/router/output
+MOE_PARAMS_PER_LAYER = 8     # 2 norms, qkv, proj, router, 3 expert stacks
+# kernel vs plain bf16 attention: each is within half a bf16 ulp of the
+# exact value (plus f32 sums), so they differ by at most a bf16 ulp,
+# 2^-7 relative, taken here with a factor 2 of slack
+MOE_FLASH_REL_TOL = 2.0 ** -6
+# the records each MoE check prints beside its verdict
+MOE_WATCH = ("layers.0.mlp/output", "layers.0.mlp/router_logits",
+             "layers.0.mlp.router", "layers.0.mlp.experts.down")
 
 
 def kernel_wrappers():
@@ -1324,11 +1385,14 @@ def flash_timing(device):
 # ranks) of the same model and batch
 # ---------------------------------------------------------------------------
 
-def dist_check(cfg, model, batch, kw, bugs=()):
+def dist_check(cfg, model, batch, kw, bugs=(), routing=None):
     """``ttrace_check`` of ``parallel.api.make_candidate_runner`` (over
     ``model``'s parameters) against the plain ``model`` under bf16
     thresholds, every launch count set to 0 just before and read just
-    after.  Returns (result, stats)."""
+    after.  With ``routing`` (a dict), each reference and candidate run's
+    MoE routing is appended to ``routing["reference"]`` and
+    ``routing["candidate"]`` (``moe_routing``).  Returns (result, stats,
+    the candidate runner)."""
     import torch
     from repro_torch.core.harness import make_model_runner, ttrace_check
     from repro_torch.core.thresholds import MACHINE_EPS
@@ -1343,6 +1407,10 @@ def dist_check(cfg, model, batch, kw, bugs=()):
     ref = timed_runner(make_model_runner(model, opt, device=dev), ref_calls)
     cand_run = timed_runner(make_candidate_runner(cfg, pcfg, model, opt,
                                                   device=dev), cand_calls)
+    if routing is not None:
+        ref = routing_runner(ref, cfg, routing.setdefault("reference", []))
+        cand_run = routing_runner(cand_run, cfg,
+                                  routing.setdefault("candidate", []))
 
     def cand(b, rewrites=None):
         marks.setdefault("after_estimate", packed_sq_norms.launches)
@@ -1380,7 +1448,7 @@ def dist_check(cfg, model, batch, kw, bugs=()):
     return res, stats, cand_run
 
 
-def dist_verdict(name, res, stats, cfg, B, S):
+def dist_verdict(name, res, stats, cfg, B, S, **shape_counts):
     if not res.passed:
         raise AssertionError(f"clean {name} check did not PASS")
     if stats["estimate_launches"] < 1 or stats["compare_launches"] < 1:
@@ -1389,7 +1457,7 @@ def dist_verdict(name, res, stats, cfg, B, S):
     if stats["other_launches"]:
         raise AssertionError(f"{name}: kernels off its path launched "
                              f"{stats['other_launches']}")
-    check_trace_shapes(res, cfg, B, S)
+    check_trace_shapes(res, cfg, B, S, **shape_counts)
 
 
 def bit_identical(t1, t2) -> list[str]:
@@ -2328,6 +2396,456 @@ def ssm_timing(device):
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# phases 22a-22d: Mixture-of-Experts — full-width mixtral-8x7b's MoE layer
+# against its expert-parallel candidate, with paper bug 6
+# ---------------------------------------------------------------------------
+
+def moe_config():
+    from repro_torch.configs.base import get_config
+    return dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_LAYERS,
+                               tie_embeddings=MOE_TIED)
+
+
+def moe_routing(trace, cfg) -> list[dict]:
+    """Each MoE layer's routing in ``trace``, from its tapped router logits
+    (the reference's ``router_topk`` and capacity rule): every token's
+    sorted top-k experts and its sorted kept experts (a dropped one as
+    ``n_experts``), the capacity, the assignments (token-expert pairs) and
+    tokens that capacity drops, and the layer's tapped output."""
+    import torch
+    from repro_torch.models.moe import (dispatch_maps, expert_capacity,
+                                        router_topk)
+    m = cfg.moe
+    out = []
+    for li in range(cfg.n_layers):
+        logits = trace.activations.raw(f"layers.{li}.mlp/router_logits")
+        logits = logits.reshape(-1, logits.shape[-1])
+        T = logits.shape[0]
+        _, top_e = router_topk(logits, m.top_k)
+        cap = expert_capacity(T, m)
+        slot, _, dropped = dispatch_maps(top_e[None], m.n_experts, cap)
+        lost = slot.reshape(T, m.top_k) == m.n_experts * cap
+        out.append(dict(
+            top=torch.sort(top_e, dim=-1).values,
+            kept=torch.sort(torch.where(lost, m.n_experts, top_e),
+                            dim=-1).values,
+            cap=cap, dropped=int(dropped[0]),
+            tokens_dropped=int(lost.any(-1).sum()),
+            output=trace.activations.raw(f"layers.{li}.mlp/output")))
+    return out
+
+
+def routing_runner(run, cfg, out):
+    """``run`` appending each call's ``moe_routing`` to ``out``."""
+    def wrapped(batch, rewrites=None):
+        tr = run(batch, rewrites)
+        out.append(moe_routing(tr, cfg))
+        return tr
+    return wrapped
+
+
+def switched(a, b, key="top") -> int:
+    """Tokens whose top-k expert set (or kept set) differs between two
+    routings."""
+    return int((a[key] != b[key]).any(-1).sum())
+
+
+def routing_stats(routing) -> list[dict]:
+    """Per MoE layer: capacity drops in the reference's first run and the
+    candidate's, tokens whose top-k set and whose kept set differ between
+    the reference and the candidate and between the estimate's base and
+    perturbed runs, and the estimate's rel-err of the layer's output
+    (||base - perturbed|| / ||base||) over all tokens and over the tokens
+    whose kept set the perturbation did not change."""
+    import torch
+    base, pert = routing["reference"][:2]
+    out = []
+    for b, p, c in zip(base, pert, routing["candidate"][0]):
+        same = (b["kept"] == p["kept"]).all(-1)
+        x = b["output"].reshape(same.shape[0], -1).float()
+        dx = x - p["output"].reshape(x.shape).float()
+
+        def rel(rows):
+            return float(torch.linalg.vector_norm(dx[rows])
+                         / torch.linalg.vector_norm(x[rows]))
+        out.append(dict(
+            capacity=b["cap"], dropped_reference=b["dropped"],
+            tokens_dropped_reference=b["tokens_dropped"],
+            dropped_candidate=c["dropped"],
+            tokens_dropped_candidate=c["tokens_dropped"],
+            switched_candidate=switched(b, c),
+            kept_switched_candidate=switched(b, c, "kept"),
+            switched_perturbed=switched(b, p),
+            kept_switched_perturbed=switched(b, p, "kept"),
+            estimate_rel_err_all=rel(torch.ones_like(same)),
+            estimate_rel_err_kept_unchanged=rel(same)))
+    return out
+
+
+def records_of(res, names) -> dict:
+    """``{kind name: (rel_err, threshold)}`` of the report's records whose
+    name is in ``names``."""
+    return {f"{r.kind} {r.name}": (r.rel_err, r.threshold)
+            for r in res.report.records if r.name in names}
+
+
+def moe_reference_step(cfg, model, batch):
+    """One traced reference step alone (AdamW, lr 1e-3): its seconds, its
+    peak device memory and the GB each trace section holds — the
+    reckoning that sizes phases 22a-22c."""
+    import torch
+    from repro_torch.core.collector import SECTION_FIELDS
+    from repro_torch.core.harness import make_model_runner
+    from repro_torch.optim.adamw import AdamW
+    dev = model.device
+    n_params = sum(p.numel() for p in model.parameters())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    tr = make_model_runner(model, AdamW(lr=1e-3), device=dev)(batch)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    sections = {sec: sum(x.numel() * x.element_size() for _, x in
+                         getattr(tr, sec).raw_items()) / 1e9
+                for sec in SECTION_FIELDS}
+    out = dict(params=n_params, seconds=secs,
+               held_before_gib=held / 2**30,
+               peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30,
+               section_gb=sections)
+    del tr
+    log(f"moe reference step ({cfg.name}, {cfg.n_layers} layer(s), tied "
+        f"{cfg.tie_embeddings}, {n_params} parameters, batch "
+        f"{tuple(batch['tokens'].shape)}): " + json.dumps(out))
+    return out
+
+
+def moe_untied(cfg, device, B, S):
+    """The reckoning behind ``MOE_TIED``: the same model with its own LM
+    head (the published config's), one traced reference step and the
+    clean tp2 check's peak memory; the model is freed at the end."""
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.models.model import Model
+    untied = dataclasses.replace(cfg, tie_embeddings=False)
+    model = Model(untied, seed=0, device=device)
+    batch = make_batch(untied, B, S, seed=0, device=device)
+    step = moe_reference_step(untied, model, batch)
+    res, stats, _ = dist_check(untied, model, batch, dict(tp=2))
+    log(f"moe untied: reference step peak {step['peak_gib']} GiB, clean "
+        f"tp2 check peak {stats['peak_gib']} GiB (passed {res.passed})")
+    return dict(reference_step=step, check_peak_gib=stats["peak_gib"],
+                passed=res.passed)
+
+
+def moe_main(cfg, model, batch, B, S):
+    """22a: each expert-parallel candidate (tp2, tp2 sp) of the 1-layer
+    model must PASS; prints the margin, step seconds, peak memory, rel-err
+    launches, capacity drops in the reference and the candidate, and the
+    tokens whose top-2 set differs between reference and candidate and
+    between the estimate's base and perturbed runs; a second tp2 run must
+    give a bit-identical trace.  Returns (stats by candidate, the clean
+    tp2 candidate's MoE outputs by layer)."""
+    import torch
+    out = {}
+    for name, kw in MOE_CANDIDATES:
+        routing = {}
+        res, stats, cand_run = dist_check(cfg, model, batch, kw,
+                                          routing=routing)
+        stats["routing"] = routing_stats(routing)
+        stats["mlp_records"] = records_of(res, MOE_WATCH)
+        if name == "tp2":
+            clean = [r["output"] for r in routing["candidate"][0]]
+        log(f"moe_main {name}: routing by layer "
+            f"{json.dumps(stats['routing'])}; records "
+            f"{json.dumps(stats['mlp_records'])}")
+        dist_verdict(f"moe_main {name}", res, stats, cfg, B, S,
+                     taps_per_layer=MOE_TAPS_PER_LAYER,
+                     params_per_layer=MOE_PARAMS_PER_LAYER)
+        if name == "tp2":
+            first = res.candidate
+            del res
+            diffs = bit_identical(first, cand_run(batch))
+            if diffs:
+                raise AssertionError(f"two tp2 candidate runs differ in "
+                                     f"{len(diffs)} tensors, first "
+                                     f"{diffs[:5]}")
+            stats["rerun_peak_gib"] = (torch.cuda.max_memory_allocated()
+                                       / 2**30)
+            log(f"moe_main tp2: a second candidate run is bit-identical in "
+                f"every section; peak device memory through the rerun "
+                f"{stats['rerun_peak_gib']} GiB")
+            del first
+        out[name] = stats
+        del cand_run, routing
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out, clean
+
+
+@contextlib.contextmanager
+def moe_capacity(cfg, model, factor):
+    """``model`` (and the config it yields) with every MoE layer at
+    capacity factor ``factor``, for the span of the block: the same
+    parameters, another dispatch."""
+    cfg2 = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=factor))
+    mods = [model] + [blk.mlp for blk in model.layers
+                      if getattr(blk, "moe", False)]
+    saved = [mod.cfg for mod in mods]
+    for mod in mods:
+        mod.cfg = cfg2
+    try:
+        yield cfg2
+    finally:
+        for mod, c in zip(mods, saved):
+            mod.cfg = c
+
+
+def moe_control(cfg, model, batch, clean):
+    """22b: ``moe_router_not_synced`` at tp2.  The registry localizes it to
+    ``layers.*.mlp``; at this width under bf16-eps thresholds the check
+    PASSes it (measured, PERF.md §6): each tensor's threshold is at
+    least 8 x 4 x 2^-8 = 0.125 relative, and the drift moves the layer's
+    output by about 1% (printed: its rel-err against ``clean``, the clean
+    tp2 candidate's per-layer outputs).  The phase asserts that verdict
+    and that the bug expresses (the output differs from the clean
+    candidate's).  Printed beside: the routing diagnosis of ``moe_main``
+    and the same control with the capacity off (dropless)."""
+    import torch
+    bug, kw = MOE_CONTROL
+    out = {}
+    for label, factor in (("capacity", cfg.moe.capacity_factor),
+                          ("dropless", 0.0)):
+        with moe_capacity(cfg, model, factor) as c:
+            routing = {}
+            res, stats, _ = dist_check(c, model, batch, kw, bugs=(bug,),
+                                       routing=routing)
+        stats["routing"] = routing_stats(routing)
+        stats["mlp_records"] = records_of(res, MOE_WATCH)
+        stats["passed"] = res.passed
+        stats["localized"] = res.localized_module
+        if label == "capacity":
+            stats["bug_effect"] = [
+                float(torch.linalg.vector_norm(
+                    (r["output"].float() - x.float()))
+                    / torch.linalg.vector_norm(x.float()))
+                for r, x in zip(routing["candidate"][0], clean)]
+        log(f"moe_control {bug} ({label}, capacity factor {factor}): "
+            f"passed={res.passed}, localized {res.localized_module!r}; "
+            f"bug effect on each layer's output (rel-err against the clean "
+            f"tp2 candidate's) {stats.get('bug_effect')}; routing by layer "
+            f"{json.dumps(stats['routing'])}; records "
+            f"{json.dumps(stats['mlp_records'])}")
+        out[label] = stats
+        del res, routing
+        gc.collect()
+        torch.cuda.empty_cache()
+    got = out["capacity"]
+    if not got["passed"] or not min(got["bug_effect"]) > 0:
+        raise AssertionError(f"{bug} under {kw}: passed={got['passed']} "
+                             f"(measured: PASS under bf16-eps thresholds), "
+                             f"bug effect {got['bug_effect']} (must be > 0)")
+    log(f"moe_control {bug}: PASS as measured, the bug expressed "
+        f"(output rel-err {got['bug_effect']} against the clean candidate)")
+    return out
+
+
+def moe_flash(cfg, model, B, S):
+    """22c: the flash candidate (``loss(use_kernel=True)``) at S 8192,
+    where the swa window of 4096 drops keys, must PASS against the plain
+    model (``attention_blockwise`` and the chunked CE); every kernel call
+    must be swa at the config's window, one launch a layer a candidate
+    run and none in the reference."""
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.models import attention as A
+    calls = {"attention_blockwise": 0}
+    modes = []
+    saved_attention, saved_blockwise = A.attention, A.attention_blockwise
+
+    def attention(q, k, v, mode="causal", window=0, **kw):
+        if kw.get("use_kernel"):
+            modes.append((mode, window))
+        return saved_attention(q, k, v, mode=mode, window=window, **kw)
+
+    def blockwise(*args, **kwargs):
+        calls["attention_blockwise"] += 1
+        return saved_blockwise(*args, **kwargs)
+    A.attention, A.attention_blockwise = attention, blockwise
+    try:
+        batch = make_batch(cfg, B, S, seed=0, device=model.device)
+        res, counts, ref_runs, cand_runs = flash_check(model, batch,
+                                                       extra=calls)
+    finally:
+        A.attention, A.attention_blockwise = saved_attention, saved_blockwise
+    ratio, where = worst_record(res)
+    log(res.summary())
+    log(f"moe_flash: launches {counts}; per reference run {ref_runs}; per "
+        f"candidate run {cand_runs}; kernel modes {sorted(set(modes))}; "
+        f"step seconds {json.dumps(res.seconds)}; largest rel-err / "
+        f"threshold {ratio:.4f} ({where})")
+    L = cfg.n_layers
+    if not res.passed:
+        raise AssertionError("clean moe_flash check did not PASS")
+    if [r["flash_attention"] for r in cand_runs] != [L]:
+        raise AssertionError(f"candidate runs launched {cand_runs}, expected "
+                             f"{L} flash_attention launches")
+    if any(r["flash_attention"] for r in ref_runs):
+        raise AssertionError("the reference launched the kernel")
+    if not modes or set(modes) != {("swa", cfg.window)}:
+        raise AssertionError(f"kernel modes {sorted(set(modes))}, expected "
+                             f"swa at window {cfg.window}")
+    if any(r["attention_blockwise"] != L for r in ref_runs):
+        raise AssertionError(f"reference runs {ref_runs}: expected {L} "
+                             f"attention_blockwise calls each")
+    check_trace_shapes(res, cfg, B, S, taps_per_layer=MOE_TAPS_PER_LAYER,
+                       params_per_layer=MOE_PARAMS_PER_LAYER)
+    return dict(launches=counts["flash_attention"], seconds=res.seconds,
+                worst=(where, ratio), per_candidate_run=cand_runs)
+
+
+def swa_flash_bound(B, S, H, Hkv, D, window, elem_bytes=2):
+    """``flash_bound`` for a sliding window: 4 D flops for each of the
+    sum over q of min(q + 1, window) unmasked pairs."""
+    nbytes = elem_bytes * B * S * D * (2 * H + 2 * Hkv)
+    w = min(window, S)
+    pairs = w * (w + 1) // 2 + (S - w) * w
+    flops = 4 * D * B * H * pairs
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / BF16_FLOPS * 1e3
+    return (max(bytes_ms, ops_ms),
+            "bytes" if bytes_ms >= ops_ms else "operations", nbytes, flops)
+
+
+def moe_flash_timing(cfg, device, B, S):
+    """22c's kernel alone at Mixtral's attention (bf16, swa at the config's
+    window): against its plain version (MOE_FLASH_REL_TOL), per launch
+    with the card held busy, the plain version, and
+    ``scaled_dot_product_attention`` given the sliding-window mask as the
+    library call, beside the bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention_ref
+    shape = (B, S, cfg.n_heads, cfg.n_kv_heads, cfg.d_head)
+    W = cfg.window
+    launches = ops.flash_attention.launches
+    q, k, v = flash_inputs(*shape, torch.bfloat16, device, seed=0)
+    got = ops.flash_attention(q, k, v, mode="swa", window=W)
+    plain = flash_attention_ref(q, k, v, mode="swa", window=W)
+    err = (got.float() - plain.float()).abs()
+    tol = MOE_FLASH_REL_TOL * plain.float().abs() + 2 * FLASH_F32_TOL
+    if not bool((err <= tol).all()):
+        raise AssertionError(f"kernel vs plain at {shape} swa {W}: max "
+                             f"{float(err.max()):.3g}, over tolerance")
+    max_abs_err = float(err.max())
+    del plain, err, tol
+    ms = device_time_ms(lambda: ops.flash_attention(q, k, v, mode="swa",
+                                                    window=W))
+    plain_ms = cuda_time_ms(lambda: flash_attention_ref(
+        q, k, v, mode="swa", window=W), reps=3, warmup=1)
+    pos = torch.arange(S, device=device)
+    mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - W)
+
+    def library():
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=mask, enable_gqa=True).transpose(1, 2)
+    lib_ms = None
+    try:
+        lib_err = float((library().double() - got.double()).abs().max())
+    except (RuntimeError, TypeError) as e:
+        log(f"scaled_dot_product_attention (swa mask) refused: "
+            f"{str(e).splitlines()[0][:200]}")
+    else:
+        if lib_err > 0.05:
+            log(f"scaled_dot_product_attention (swa mask) disagrees by "
+                f"{lib_err:.3g}; no library time")
+        else:
+            lib_ms = device_time_ms(library)
+    bound_ms, bound_by, nbytes, flops = swa_flash_bound(*shape, W)
+    ops.flash_attention.launches = launches  # timing launches are not counted
+    row = dict(shape=shape, window=W, ms=ms, plain_ms=plain_ms,
+               library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by,
+               bound_share=bound_ms / ms, bytes=nbytes, flops=flops,
+               max_abs_err=max_abs_err)
+    log(f"flash_attention at {cfg.name}'s attention {shape} swa {W}: "
+        + json.dumps(row))
+    return row
+
+
+def moe_cli(root):
+    """22d: ``python -m repro_torch.launch.supervise --recipe moe --bug
+    moe_router_not_synced`` at ``--reduced`` (the CLI writes a checkpoint
+    of both states at step 0: 1.582 B parameters x 14 B x 2 sides would
+    near the card machine's 45 GiB of writes) must flag at step 0, with
+    first bad step 0, at a ``layers.*.mlp`` module."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    argv = ["--recipe", "moe", "--reduced", "--steps", "4",
+            "--bug", "moe_router_not_synced", "--no-spill",
+            "--device", "cuda", "--work-dir", os.path.join(root, "moe_cli")]
+    t0 = time.perf_counter()
+    cli = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.supervise", *argv],
+        capture_output=True, text=True, timeout=600, env=env, cwd=ROOT)
+    cli_s = time.perf_counter() - t0
+    lines = cli.stdout.strip().splitlines()
+    log(f"--- cli {' '.join(argv[:-2])}: rc {cli.returncode} in "
+        f"{cli_s:.2f} s\n" + "\n".join(lines[-14:]))
+
+    def last(tag):
+        hit = [ln.split(tag, 1)[1].strip() for ln in lines if tag in ln]
+        return hit[-1] if hit else None
+    loc = [ln for ln in lines if "localized:" in ln and "expected" in ln]
+    if (cli.returncode != 0 or last("first flagged (online): step") != "0"
+            or last("FIRST BAD STEP:") != "0" or not loc
+            or "[MATCH]" not in loc[-1]):
+        raise AssertionError(f"cli moe run: rc {cli.returncode}\n"
+                             f"{cli.stdout[-3000:]}\n{cli.stderr[-3000:]}")
+    return dict(seconds=cli_s, localized=loc[-1].strip(),
+                work_dir_gb=dir_gb(os.path.join(root, "moe_cli")))
+
+
+def moe_phases(device, phase):
+    """Phases 22a-22d (the model and every trace freed at the end)."""
+    import tempfile
+    import torch
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.models.model import Model
+    cfg = moe_config()
+    B, S = MOE_BATCH
+    out = {"moe_untied": phase("moe_untied",
+                               lambda: moe_untied(cfg, device, B, S))}
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = Model(cfg, seed=0, device=device)
+    log(f"moe model {cfg.name}: {MOE_LAYERS} layer(s), tied "
+        f"{cfg.tie_embeddings}, built in {time.perf_counter() - t0:.2f} s")
+    batch = make_batch(cfg, B, S, seed=0, device=device)
+    out["moe_reference_step"] = phase(
+        "moe_reference_step", lambda: moe_reference_step(cfg, model, batch))
+    main = phase("moe_main", lambda: moe_main(cfg, model, batch, B, S))
+    if main is not None:
+        out["moe_main"], clean = main
+        out["moe_control"] = phase(
+            "moe_control", lambda: moe_control(cfg, model, batch, clean))
+        del main, clean
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["moe_flash"] = phase(
+        "moe_flash", lambda: moe_flash(cfg, model, *MOE_FLASH_BATCH))
+    del model, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["moe_flash_timing"] = phase(
+        "moe_flash_timing", lambda: moe_flash_timing(cfg, device,
+                                                     *MOE_FLASH_BATCH))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_moe_") as root:
+        out["moe_cli"] = phase("moe_cli", lambda: moe_cli(root))
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2507,6 +3025,10 @@ def main() -> int:
                     f" ms, library: no single call, bound "
                     f"{row['bound_ms']:.4f} ms ({row['bound_by']}); passes "
                     f"{json.dumps(row['pass_ms'])}")
+    # the Mixtral phases need most of the card: every earlier model is gone
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_phases(dev, phase)
     if failures:
         log(f"FAILED phases: {failures}")
         return 1

@@ -6,9 +6,11 @@ tests and ``chip_smoke.py`` read each bug's ``expected_module`` from here.
 Every entry but those in ``PENDING`` is injectable: ``fp8_stale_scale``
 through ``precision.fp8``, the three ``pp_*`` bugs through the pipeline
 candidates (``parallel.pp``, ``parallel.pp1f1b``), the rest through
-``parallel.api`` (the distributed candidate).  ``PENDING`` names the
-ROADMAP item that brings each of the others; ``check_injectable`` refuses
-them rather than run a clean candidate under a bug's name.
+``parallel.api`` (the distributed candidate; ``moe_router_not_synced``
+through its expert-parallel MoE blocks).  ``PENDING`` would name the
+ROADMAP item that brings a bug the port cannot inject yet (none is left);
+``check_injectable`` refuses such a bug rather than run a clean candidate
+under its name.
 """
 from __future__ import annotations
 
@@ -118,10 +120,8 @@ def available_for(features: set[str]) -> list[BugSpec]:
     return [b for b in BUGS.values() if set(b.requires) <= features]
 
 
-# the recipes these bugs live in are not ported yet
-PENDING: dict[str, str] = {
-    "moe_router_not_synced": "ROADMAP A9 (MoE)",
-}
+# bugs whose recipes are not ported yet, with the ROADMAP item of each
+PENDING: dict[str, str] = {}
 
 
 def injectable() -> set[str]:

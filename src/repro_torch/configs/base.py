@@ -1,16 +1,29 @@
-"""Architecture configuration: the dense and SSM subset of
+"""Architecture configuration: the dense, MoE and SSM subset of
 ``repro/configs/base.py``.
 
-The port carries only the fields the dense decoder and RWKV-6 paths read
-(``SSMConfig`` is copied whole, mamba2 fields included); MoE, MLA, hybrid
-and frontend fields arrive with the slices that port those models.
-``reduced()`` gives the same CPU-smoke variant as the reference.
+The port carries only the fields the dense decoder, MoE and RWKV-6 paths
+read (``MoEConfig`` and ``SSMConfig`` are copied whole, shared-expert and
+mamba2 fields included); MLA, hybrid and frontend fields arrive with the
+slices that port those models.  ``reduced()`` gives the same CPU-smoke
+variant as the reference.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
 from typing import Optional
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int = 0
+    top_k: int = 0
+    n_shared: int = 0          # shared (always-on) experts, deepseek-style
+    d_ff_expert: int = 0       # per-expert hidden size
+    d_ff_dense: int = 0        # dense FFN hidden for non-MoE layers (deepseek layer 0)
+    n_dense_layers: int = 0    # leading layers that use a dense FFN instead of MoE
+    router_aux_coef: float = 0.01
+    capacity_factor: float = 2.0   # <= 0 means dropless (cap = n_tokens)
 
 
 @dataclass(frozen=True)
@@ -29,7 +42,7 @@ class SSMConfig:
 @dataclass(frozen=True)
 class ArchConfig:
     name: str
-    arch_type: str              # dense | ssm (the families ported so far)
+    arch_type: str              # dense | moe | ssm (the families ported so far)
     n_layers: int
     d_model: int
     n_heads: int
@@ -47,6 +60,7 @@ class ArchConfig:
 
     tie_embeddings: bool = False
 
+    moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
 
     # numerics
@@ -58,11 +72,22 @@ class ArchConfig:
             object.__setattr__(self, "d_head", self.d_model // self.n_heads)
 
     def reduced(self) -> "ArchConfig":
-        """CPU smoke variant of the same family: 2 layers, d_model<=256."""
+        """CPU smoke variant of the same family: 2 layers, d_model<=256,
+        <=4 experts."""
         d_model = min(self.d_model, 256)
         n_heads = min(self.n_heads, 4)
         n_kv = max(1, min(self.n_kv_heads, n_heads))
         kw = {}
+        if self.moe is not None:
+            kw["moe"] = MoEConfig(
+                n_experts=min(self.moe.n_experts, 4),
+                top_k=min(self.moe.top_k, 2),
+                n_shared=min(self.moe.n_shared, 1),
+                d_ff_expert=min(self.moe.d_ff_expert, 128),
+                d_ff_dense=min(self.moe.d_ff_dense, 256) if self.moe.d_ff_dense else 0,
+                n_dense_layers=min(self.moe.n_dense_layers, 1),
+                capacity_factor=0.0,   # dropless: exact differential testing
+            )
         if self.ssm is not None:
             kw["ssm"] = dataclasses.replace(
                 self.ssm, d_state=16, d_head=32, chunk=32, decay_lora=16,
@@ -96,7 +121,7 @@ def register(cfg: ArchConfig) -> ArchConfig:
 def get_config(name: str) -> ArchConfig:
     # importing each per-arch module registers it
     from repro_torch.configs import (  # noqa: F401
-        gpt_paper, rwkv6_7b, tinyllama_11b)
+        gpt_paper, mixtral_8x7b, rwkv6_7b, tinyllama_11b)
     try:
         return _REGISTRY[name]
     except KeyError:

@@ -14,14 +14,16 @@ port of ``repro/launch/supervise.py``, with the same flags and recipe names.
     PYTHONPATH=src python -m repro_torch.launch.supervise --recipe pp-1f1b \
         --pp 4 --microbatches 4 --reduced --layers 8 --steps 8 \
         --bug pp_stale_boundary
+    # expert-parallel MoE (mixtral-8x7b by default), paper bug 6
+    PYTHONPATH=src python -m repro_torch.launch.supervise --recipe moe \
+        --reduced --steps 8 --bug moe_router_not_synced
 
 Runs the single-device reference and the candidate recipe (the
-distributed dense/ZeRO-1 candidate on emulated ranks, the staged or 1F1B
-pipeline, or FP8 — with any injected registry bug) in lockstep on one
+distributed dense/MoE/ZeRO-1 candidate on emulated ranks, the staged or
+1F1B pipeline, or FP8 — with any injected registry bug) in lockstep on one
 card, checking every step online through the async pipeline; on a flag
 the run is bisected to the first bad step and the bug is localized.
-``--device cpu`` runs on the CPU.  The ``moe`` recipe is not ported yet
-and refuses (ROADMAP A9).
+``--device cpu`` runs on the CPU.
 
 On the card the run is deterministic, so that a ``--resume`` of a killed
 run, a bisection replay and an uninterrupted run agree bit for bit:
@@ -38,8 +40,9 @@ import sys
 
 RECIPES = ("dense", "moe", "zero1", "pp", "pp-1f1b",
            "fp8-global", "fp8-per_tensor", "fp8-tile128")
-# the recipes of the reference the port does not run yet
-NOT_PORTED = {"moe": "ROADMAP A9 (MoE)"}
+# the recipes of the reference the port does not run yet, with the ROADMAP
+# item of each (none is left)
+NOT_PORTED: dict[str, str] = {}
 
 # each non-shard_map recipe's OWN injectable feature set: a bug that doesn't
 # intersect it would be a silent no-op under that recipe
@@ -62,7 +65,7 @@ def _refuse_unported(recipe: str) -> None:
                          f"{NOT_PORTED[recipe]}")
 
 
-def build_pcfg(args, requires: set):
+def build_pcfg(args, requires: set, arch_is_moe: bool = False):
     from repro_torch.parallel.api import ParallelConfig
     bugs = frozenset([args.bug]) if args.bug else frozenset()
     recipe = args.recipe or "dense"
@@ -127,8 +130,12 @@ def build_pcfg(args, requires: set):
             sp=args.sp or "sp" in requires,
             zero1=args.zero1 or recipe == "zero1" or "zero1" in requires,
             bugs=bugs)
-    # a bug the built candidate cannot express would silently "pass"
-    missing = set(requires) - pcfg.features
+    # a bug the built candidate cannot express would silently "pass":
+    # refuse instead of reporting a meaningless clean run ("moe" is an
+    # arch-side feature — satisfied by the MODEL, so only exempt it when
+    # the arch actually has MoE blocks to inject into)
+    features = pcfg.features | ({"moe"} if arch_is_moe else set())
+    missing = set(requires) - features
     if missing:
         raise SystemExit(
             f"bug {args.bug!r} requires {sorted(missing)} which recipe "
@@ -140,13 +147,14 @@ def build_pcfg(args, requires: set):
 def parse_args(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default=None,
-                    help="arch config name (default tinyllama-1.1b)")
+                    help="arch config name (default tinyllama-1.1b, or "
+                         "mixtral-8x7b for --recipe moe)")
     ap.add_argument("--recipe", default=None, choices=RECIPES,
-                    help="candidate recipe: dense/zero1 (distributed on "
+                    help="candidate recipe: dense/moe/zero1 (distributed on "
                          "emulated ranks), pp (staged pipeline), pp-1f1b "
                          "(1F1B pipeline) or an fp8 scaling recipe (default "
                          "dense; a --bug requiring pp, 1f1b or fp8 pulls "
-                         "that recipe in); moe is not ported yet")
+                         "that recipe in)")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--layers", type=int, default=None,
                     help="override the arch's layer count")
@@ -243,15 +251,22 @@ def run(args):
                          f"yet: {PENDING[args.bug]}")
     spec = BUGS[args.bug] if args.bug else None
     if args.arch is None:
-        args.arch = "tinyllama-1.1b"
+        args.arch = ("mixtral-8x7b" if args.recipe == "moe"
+                     else "tinyllama-1.1b")
     cfg = get_config(args.arch)
+    if args.recipe == "moe" and cfg.arch_type != "moe":
+        # an explicit non-MoE --arch is refused, never silently replaced
+        raise SystemExit(f"--recipe moe needs an MoE arch "
+                         f"(e.g. mixtral-8x7b); got --arch {args.arch} "
+                         f"[{cfg.arch_type}]")
     if args.reduced:
         cfg = cfg.reduced()
     if args.layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
-    # the candidate recipes implement the GPT/Llama family
+    # the candidate recipes implement the GPT/Llama/MoE families
     cfg = dataclasses.replace(cfg, tie_embeddings=True)
-    recipe, pcfg = build_pcfg(args, set(spec.requires) if spec else set())
+    recipe, pcfg = build_pcfg(args, set(spec.requires) if spec else set(),
+                              arch_is_moe=cfg.arch_type == "moe")
 
     model = Model(cfg, seed=args.seed, device=args.device)
     opt = AdamW(lr=args.lr)

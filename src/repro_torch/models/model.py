@@ -1,4 +1,4 @@
-"""Model assembly: the dense-decoder and RWKV-6 port of
+"""Model assembly: the dense-decoder, MoE and RWKV-6 port of
 ``repro/models/model.py``.
 
 ``named_parameters()`` gives exactly the reference's
@@ -24,6 +24,7 @@ from repro_torch.models.attention import GQAttention
 from repro_torch.models.layers import (SwiGLUMLP, _logits,
                                        chunked_cross_entropy, cross_entropy,
                                        rmsnorm)
+from repro_torch.models.moe import MoE
 from repro_torch.models.ssm import RWKV6ChannelMix, RWKV6TimeMix
 
 # the reference switches to chunked_cross_entropy above S * V = 2^26
@@ -33,20 +34,30 @@ _CHUNKED_CE_ELEMS = 1 << 26
 @dataclass(frozen=True)
 class Segment:
     name: str          # params key; also the tap scope
-    kind: str          # attn_mlp | rwkv (the kinds ported so far)
+    kind: str          # attn_mlp | attn_dense_mlp | attn_moe | rwkv (ported)
     n: int             # number of layers in this segment
     layer0: int        # global index of the first layer (canonical naming)
 
 
 def build_plan(cfg: ArchConfig) -> list[Segment]:
-    if cfg.arch_type == "dense" and cfg.attn in ("full", "swa"):
-        return ([Segment("layers", "attn_mlp", cfg.n_layers, 0)]
-                if cfg.n_layers else [])
+    L = cfg.n_layers
+    if cfg.arch_type in ("dense", "moe") and cfg.attn not in ("full", "swa"):
+        raise NotImplementedError(
+            f"{cfg.name}: attention {cfg.attn!r} is not ported yet")
+    if cfg.arch_type == "dense":
+        return [Segment("layers", "attn_mlp", L, 0)] if L else []
+    if cfg.arch_type == "moe":
+        nd = min(cfg.moe.n_dense_layers, L)
+        segs = [Segment("dense_layers", "attn_dense_mlp", nd, 0)] if nd else []
+        if L - nd > 0:
+            segs.append(Segment("layers", "attn_moe", L - nd, nd))
+        return segs
     if cfg.arch_type == "ssm":
-        return [Segment("layers", "rwkv", cfg.n_layers, 0)]
-    # MoE / hybrid / MLA and the frontends are later slices
+        return [Segment("layers", "rwkv", L, 0)]
+    # hybrid / MLA and the frontends are later slices
     raise NotImplementedError(
-        f"{cfg.name}: only dense GQA decoders and RWKV-6 are ported so far")
+        f"{cfg.name}: only dense and MoE GQA decoders and RWKV-6 are "
+        f"ported so far")
 
 
 def _out_scale(cfg):  # megatron-style scaled residual-output init
@@ -54,24 +65,38 @@ def _out_scale(cfg):  # megatron-style scaled residual-output init
 
 
 class Block(nn.Module):
-    """``block_init`` / ``block_apply`` for the ``attn_mlp`` kind."""
+    """``block_init`` / ``block_apply`` for the attention kinds:
+    ``attn_mlp``, ``attn_dense_mlp`` (an MoE arch's leading dense layers,
+    of width ``d_ff_dense``) and ``attn_moe``.  ``forward`` gives ``(x,
+    aux)``; ``aux`` is the MoE load-balance loss, ``None`` for a dense
+    MLP."""
 
-    def __init__(self, gen, cfg: ArchConfig, dtype):
+    def __init__(self, gen, cfg: ArchConfig, dtype, kind="attn_mlp"):
         super().__init__()
         osc = _out_scale(cfg)
         self.input_norm = nn.Parameter(torch.ones(cfg.d_model, dtype=dtype))
         self.post_attn_norm = nn.Parameter(torch.ones(cfg.d_model, dtype=dtype))
         self.self_attention = GQAttention(gen, cfg, dtype, osc)
-        self.mlp = SwiGLUMLP(gen, cfg.d_model, cfg.d_ff, dtype, osc)
+        self.moe = kind == "attn_moe"
+        if self.moe:
+            self.mlp = MoE(gen, cfg, dtype, osc)
+        else:
+            d_ff = ((cfg.moe.d_ff_dense or cfg.d_ff) if kind == "attn_dense_mlp"
+                    else cfg.d_ff)
+            self.mlp = SwiGLUMLP(gen, cfg.d_model, d_ff, dtype, osc)
 
     def forward(self, x, ctx, use_kernel=False, precision=None):
         h = rmsnorm(self.input_norm, x)
         with ctx.scope("self_attention"):
             x = x + self.self_attention(h, ctx=ctx, use_kernel=use_kernel)
         h = rmsnorm(self.post_attn_norm, x)
+        aux = None
         with ctx.scope("mlp"):
-            x = x + self.mlp(h, ctx=ctx, precision=precision)
-        return x
+            if self.moe:
+                mo, aux = self.mlp(h, ctx=ctx)
+            else:
+                mo = self.mlp(h, ctx=ctx, precision=precision)
+        return x + mo, aux
 
 
 class RWKVBlock(nn.Module):
@@ -95,10 +120,13 @@ class RWKVBlock(nn.Module):
         h = rmsnorm(self.post_tm_norm, x)
         with ctx.scope("channel_mix"):
             x = x + self.channel_mix(h, ctx=ctx)[0]
-        return x
+        return x, None
 
 
-BLOCKS = {"attn_mlp": Block, "rwkv": RWKVBlock}
+def make_block(gen, cfg: ArchConfig, kind: str, dtype) -> nn.Module:
+    if kind == "rwkv":
+        return RWKVBlock(gen, cfg, dtype)
+    return Block(gen, cfg, dtype, kind)
 
 
 class Embedding(nn.Module):
@@ -137,8 +165,13 @@ class Model(nn.Module):
             self.lm_head = nn.Parameter(
                 (0.02 * torch.randn(cfg.vocab, cfg.d_model, generator=gen)
                  ).to(dtype))
-        self.layers = nn.ModuleList(BLOCKS[seg.kind](gen, cfg, dtype)
-                                    for seg in self.plan for _ in range(seg.n))
+        # one ModuleList a segment, under the segment's name: an MoE arch's
+        # leading dense layers are ``dense_layers.{j}``, as the reference
+        # names their parameters (its taps use the global ``layers.{li}``)
+        self.layers = nn.ModuleList()
+        for seg in self.plan:
+            setattr(self, seg.name, nn.ModuleList(
+                make_block(gen, cfg, seg.kind, dtype) for _ in range(seg.n)))
         self.to(dev)
 
     @property
@@ -150,30 +183,37 @@ class Model(nn.Module):
                             self.cdtype, ctx)
 
     def apply_blocks(self, h, ctx=None, use_kernel=False, precision=None):
+        """``(final_norm_out, aux)``: ``aux`` sums the blocks' MoE
+        load-balance losses (f32 zero without MoE blocks)."""
         ctx = ensure_ctx(ctx)
+        aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
         for seg in self.plan:
-            for j in range(seg.n):
-                li = seg.layer0 + j
-                with ctx.scope(f"layers.{li}"):
-                    h = self.layers[li](h, ctx, use_kernel=use_kernel,
-                                        precision=precision)
+            for j, block in enumerate(getattr(self, seg.name)):
+                with ctx.scope(f"layers.{seg.layer0 + j}"):
+                    h, aux = block(h, ctx, use_kernel=use_kernel,
+                                   precision=precision)
+                if aux is not None:
+                    aux_total = aux_total + aux
         h = rmsnorm(self.final_norm, h)
-        return ctx.tap("final_norm_out", h)
+        return ctx.tap("final_norm_out", h), aux_total
 
     def forward(self, batch, ctx=None, use_kernel=False, precision=None):
         """``use_kernel`` runs attention on the flash-attention kernel;
         ``precision`` (an optional ``precision.fp8.Precision``) routes the
         MLP matmuls through its FP8 recipe; everything else stays in the
-        compute dtype."""
+        compute dtype.  Returns the final hidden states; ``loss`` adds
+        the MoE load-balance loss ``apply_blocks`` gives beside them."""
         return self.apply_blocks(self.embed(batch, ctx), ctx,
-                                 use_kernel=use_kernel, precision=precision)
+                                 use_kernel=use_kernel,
+                                 precision=precision)[0]
 
     def loss(self, batch, ctx=None, use_kernel=False, precision=None):
-        """(loss, {"ce", "aux"}): next-token CE, computed in sequence
-        chunks of min(1024, S) when S * vocab > 2^26, as the reference."""
+        """(ce + aux, {"ce", "aux"}): next-token CE, computed in sequence
+        chunks of min(1024, S) when S * vocab > 2^26, as the reference,
+        plus the MoE blocks' load-balance losses."""
         cfg = self.cfg
-        h = self.forward(batch, ctx, use_kernel=use_kernel,
-                         precision=precision)
+        h, aux = self.apply_blocks(self.embed(batch, ctx), ctx,
+                                   use_kernel=use_kernel, precision=precision)
         e = (self.embedding.word_embeddings if cfg.tie_embeddings
              else self.lm_head)
         labels, mask = batch["labels"], batch.get("loss_mask")
@@ -182,5 +222,4 @@ class Model(nn.Module):
                                        chunk=min(1024, h.shape[1]))
         else:
             ce = cross_entropy(_logits(h, e), labels, mask=mask)
-        aux = torch.zeros((), dtype=torch.float32, device=ce.device)
         return ce + aux, {"ce": ce, "aux": aux}

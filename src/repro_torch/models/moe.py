@@ -1,0 +1,238 @@
+"""Mixture-of-Experts: top-k router + capacity-based expert dispatch; the
+port of ``repro/models/moe.py``.
+
+Dispatch uses the reference's sort-based capacity layout: token-expert
+assignments are sorted by expert id (stably, so an expert's tokens keep
+their order), each expert processes a fixed-capacity ``(E, C, d)`` buffer
+through one batched matmul, and overflow assignments are dropped
+(``capacity_factor`` sets C).  The port runs the reference's single-group
+path (``G == 1``): it has no sharding context, and
+``sharding/rules.dispatch_groups`` gives 1 without one.
+
+Every (expert, slot) of the buffer holds at most one assignment, and every
+kept assignment sits in exactly one slot, so the dispatch and the combine
+are two partial permutations of rows.  Both run as gathers (``_Route``),
+and so do their backward passes, which gather through the inverse map: no
+scatter, no atomic add, and a token's k contributions are summed over a
+fixed axis.  Two runs on the card are bit-identical.
+
+Router logits are tapped (paper bug 6, router weights not synchronized,
+surfaces exactly there).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.core.tap import ensure_ctx
+from repro_torch.models.layers import SwiGLUMLP, dense_init
+
+
+def router_topk(logits, top_k):
+    """fp32 softmax-then-topk with renormalization.  logits: (..., E).
+    A stable descending sort: on exact ties the lower expert comes first,
+    as ``jax.lax.top_k`` orders them."""
+    probs = torch.softmax(logits.float(), dim=-1)
+    top_p, top_e = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top_p, top_e = top_p[..., :top_k], top_e[..., :top_k]
+    top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
+    return top_p, top_e
+
+
+def load_balance_loss(probs_mean, assigned_frac, n_experts):
+    """Switch-style aux loss: E * sum_e f_e * P_e (over the last dim)."""
+    return n_experts * torch.sum(probs_mean * assigned_frac, dim=-1)
+
+
+def expert_counts(top_e, n_experts: int):
+    """Assignments per expert of ``top_e`` ``(..., T, k)``: f32 ``(...,
+    E)``, a compare-and-sum histogram (exact, and free of CUDA's scatter
+    atomics)."""
+    e = torch.arange(n_experts, device=top_e.device)
+    return (top_e[..., None] == e).sum((-3, -2)).float()
+
+
+def expert_capacity(n_tokens: int, m) -> int:
+    """Per-expert buffer size; capacity_factor <= 0 means dropless.
+    Rounded up to a multiple of 512 above 512, as the reference."""
+    if m.capacity_factor <= 0:
+        return n_tokens
+    cap = int(max(1, m.capacity_factor * n_tokens * m.top_k / m.n_experts))
+    if cap > 512:
+        cap = -(-cap // 512) * 512
+    return cap
+
+
+def dispatch_maps(top_e, n_experts: int, cap: int, e0=None, n_local=None):
+    """Where every assignment goes, for ``R`` routings at once.
+
+    ``top_e``: int ``(R, T, k)``; ``e0``: ``(R,)`` first expert each routing
+    owns (``None``: all ``n_experts``, ``n_local`` of them from ``e0``).
+    Assignment ``a = t * k + j`` of routing ``r`` is row ``r * T * k + a``;
+    slot ``c`` of local expert ``e`` is buffer row ``(r * n_local + e) *
+    cap + c``.  An assignment is kept when its expert is local and it is
+    among the first ``cap`` of that expert's assignments in token order
+    (the reference's ``pos < cap``).
+
+    Returns ``(slot, src, dropped)``: ``slot`` ``(R*T*k,)`` the buffer row
+    of each assignment, or the buffer's row count if not kept; ``src``
+    ``(R*n_local*cap,)`` the assignment each buffer row holds, or
+    ``R*T*k`` if empty; ``dropped`` ``(R,)`` the assignments each routing
+    drops for capacity (over all experts)."""
+    R, T, k = top_e.shape
+    N = T * k
+    n_local = n_experts if n_local is None else n_local
+    dev = top_e.device
+    flat_e = top_e.reshape(R, N)
+    order = torch.argsort(flat_e, dim=-1, stable=True)
+    se = torch.gather(flat_e, 1, order)
+    experts = torch.arange(n_experts, device=dev).expand(R, -1).contiguous()
+    start = torch.searchsorted(se, experts, side="left")          # (R, E)
+    count = torch.searchsorted(se, experts, side="right") - start
+    pos = torch.arange(N, device=dev) - torch.gather(start, 1, se)
+    e0 = (torch.zeros(R, dtype=torch.long, device=dev) if e0 is None
+          else e0.to(device=dev, dtype=torch.long))
+    le = se - e0[:, None]
+    keep = (le >= 0) & (le < n_local) & (pos < cap)
+    rows = R * n_local * cap
+    slot_sorted = torch.where(
+        keep, (torch.arange(R, device=dev)[:, None] * n_local + le) * cap
+        + pos, rows)
+    # the inverse of a permutation is its argsort: a gather, not a scatter
+    slot = torch.gather(slot_sorted, 1, torch.argsort(order, dim=-1))
+    local = e0[:, None] + torch.arange(n_local, device=dev)       # (R, El)
+    first = torch.gather(start, 1, local)[..., None] + torch.arange(
+        cap, device=dev)                                          # (R, El, C)
+    held = (torch.arange(cap, device=dev)
+            < torch.gather(count, 1, local)[..., None])
+    asg = torch.gather(order, 1, first.clamp(max=N - 1).reshape(R, -1))
+    src = torch.where(held.reshape(R, -1),
+                      asg + torch.arange(R, device=dev)[:, None] * N, R * N)
+    dropped = (pos >= cap).sum(-1)
+    return slot.reshape(-1), src.reshape(-1), dropped
+
+
+def _pick(x, idx):
+    """Rows ``idx`` of ``x``; index ``len(x)`` picks a row of zeros."""
+    pad = torch.cat([x, x.new_zeros((1,) + tuple(x.shape[1:]))])
+    return pad.index_select(0, idx)
+
+
+class _Route(torch.autograd.Function):
+    """``out[j] = x[idx[j]]`` for an ``idx`` that uses each row of ``x`` at
+    most once; ``inv`` is its inverse (``inv[idx[j]] = j``, and ``len(out)``
+    for a row no ``j`` picks).  The backward is the gather through ``inv``."""
+
+    @staticmethod
+    def forward(ctx, x, idx, inv):
+        ctx.save_for_backward(inv)
+        return _pick(x, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        inv, = ctx.saved_tensors
+        return _pick(g, inv), None, None
+
+
+def dispatch_combine(xt, top_p, top_e, experts: dict, n_experts: int,
+                     cap: int, e0=None):
+    """Capacity dispatch + expert compute + combine for ``R`` routings:
+    the reference's ``_dispatch_one_group`` (``e0 is None``) and the
+    local-expert part of ``parallel/gpt.tp_moe`` (``e0`` each routing's
+    first local expert).
+
+    ``xt`` ``(R, T, d)`` in the compute dtype; ``top_p``/``top_e``
+    ``(R, T, k)``; ``experts`` leaves ``(R, El, ...)``.  Returns the f32
+    ``(R, T, d)`` sum of each token's kept, weighted expert outputs."""
+    R, T, d = xt.shape
+    k = top_e.shape[-1]
+    El = experts["gate"].shape[1]
+    f = experts["gate"].shape[-1]
+    slot, src, _ = dispatch_maps(top_e, n_experts, cap, e0=e0, n_local=El)
+    xa = xt[:, :, None, :].expand(R, T, k, d).reshape(R * T * k, d)
+    buf = _Route.apply(xa, src, slot).reshape(R * El, cap, d)
+    dt = xt.dtype
+    gate = experts["gate"].to(dt).reshape(R * El, d, f)
+    up = experts["up"].to(dt).reshape(R * El, d, f)
+    down = experts["down"].to(dt).reshape(R * El, f, d)
+    h = F.silu(torch.bmm(buf, gate)) * torch.bmm(buf, up)
+    out = torch.bmm(h, down).reshape(R * El * cap, d)
+    ya = _Route.apply(out, slot, src).reshape(R, T, k, d)
+    return (ya.float() * top_p[..., None]).sum(2)
+
+
+def moe_forward(p: dict, cfg, x, ctx=None):
+    """x: (B,S,d).  Returns (y, aux_loss).  ``p``: ``{"router": (d, E) f32,
+    "experts": {"gate", "up", "down"}}`` (and ``"shared"``, a
+    ``SwiGLUMLP``, with shared experts)."""
+    ctx = ensure_ctx(ctx)
+    x = ctx.tap("input", x)
+    m = cfg.moe
+    B, S, d = x.shape
+    T = B * S
+    xt = x.reshape(T, d)
+
+    logits = xt.float() @ p["router"]                            # (T,E) fp32
+    logits = ctx.tap("router_logits",
+                     logits.reshape(B, S, -1)).reshape(T, -1)
+    top_p, top_e = router_topk(logits, m.top_k)
+
+    # aux loss statistics (global)
+    probs = torch.softmax(logits, dim=-1)
+    aux = load_balance_loss(probs.mean(0),
+                            expert_counts(top_e, m.n_experts) / (T * m.top_k),
+                            m.n_experts) * m.router_aux_coef
+
+    cap = expert_capacity(T, m)
+    experts = {n: w[None] for n, w in p["experts"].items()}
+    yt = dispatch_combine(xt[None], top_p[None], top_e[None], experts,
+                          m.n_experts, cap)
+    y = yt.reshape(B, S, d).to(x.dtype)
+    if m.n_shared:
+        y = y + p["shared"](x)
+    y = ctx.tap("output", y)
+    return y, aux
+
+
+class Experts(nn.Module):
+    """The stacked expert weights: ``gate``/``up`` (E, d, f), ``down``
+    (E, f, d)."""
+
+    def __init__(self, gen, n_experts, d, f, dtype, out_scale=None):
+        super().__init__()
+
+        def normal(scale, *shape):
+            return nn.Parameter(
+                (scale * torch.randn(*shape, generator=gen)).to(dtype))
+
+        self.gate = normal(0.02, n_experts, d, f)
+        self.up = normal(0.02, n_experts, d, f)
+        self.down = normal(out_scale or 0.02, n_experts, f, d)
+
+
+class MoE(nn.Module):
+    """``moe_init`` / ``moe_forward``: an f32 router, the stacked experts
+    and, with ``n_shared``, an always-on shared SwiGLU MLP.  Parameter
+    names are the reference's (``router``, ``experts.{gate,up,down}``,
+    ``shared.{gate,up,down}.w``)."""
+
+    def __init__(self, gen, cfg, dtype, out_scale=None):
+        super().__init__()
+        m = cfg.moe
+        self.cfg = cfg
+        d, f = cfg.d_model, m.d_ff_expert
+        self.router = nn.Parameter(dense_init(gen, d, m.n_experts,
+                                              torch.float32))
+        self.experts = Experts(gen, m.n_experts, d, f, dtype, out_scale)
+        if m.n_shared:
+            self.shared = SwiGLUMLP(gen, d, m.n_shared * f, dtype,
+                                    out_scale=out_scale)
+
+    def forward(self, x, ctx=None):
+        p = {"router": self.router,
+             "experts": {n: getattr(self.experts, n)
+                         for n in ("gate", "up", "down")}}
+        if self.cfg.moe.n_shared:
+            p["shared"] = self.shared
+        return moe_forward(p, self.cfg, x, ctx=ctx)

@@ -97,6 +97,21 @@ class ParallelConfig:
         return "shard_map"
 
 
+def candidate_features(cfg, pcfg: ParallelConfig) -> set:
+    """The features a candidate of ``cfg`` under ``pcfg`` runs: ``pcfg``'s,
+    and ``moe`` when the arch has MoE blocks to inject into (an arch-side
+    feature, satisfied by the model)."""
+    return pcfg.features | ({"moe"} if cfg.moe is not None else set())
+
+
+def param_dtypes(cfg):
+    """``name -> dtype`` each parameter is kept in, as the reference's
+    ``Model.init`` makes it: the config's param dtype, and f32 for the MoE
+    router (``moe_init``)."""
+    dt = getattr(torch, cfg.param_dtype)
+    return lambda name: torch.float32 if name.endswith("mlp.router") else dt
+
+
 def make_mesh(pcfg: ParallelConfig, device="cuda") -> Mesh:
     """The emulated mesh of ``pcfg``'s dp/cp/tp ranks on ``device``."""
     return Mesh(pcfg.dp, pcfg.cp, pcfg.tp, device=device)
@@ -456,8 +471,9 @@ class _Plumbing:
 
 def _leaves(pl: _Plumbing, params: dict, dev, dtype) -> dict:
     """One leaf per parameter holding every rank's shard (layout-mapped):
-    each rank's slice of its ``.grad`` is that rank's own gradient."""
-    return {n: pl.shard(pl.to_cand(n, _on(v, dev, dtype)),
+    each rank's slice of its ``.grad`` is that rank's own gradient.
+    ``dtype``: ``param_dtypes(cfg)``."""
+    return {n: pl.shard(pl.to_cand(n, _on(v, dev, dtype(n))),
                         pl.ann.param_spec(n)).requires_grad_()
             for n, v in params.items()}
 
@@ -503,12 +519,12 @@ def make_candidate_runner(cfg, pcfg: ParallelConfig, ref_params, opt=None,
     ``{flat name: tensor or numpy array}``; a run never changes them.
     Trace leaves stay on ``device``."""
     dev = resolve_device(device)
-    check_injectable(pcfg.bugs, pcfg.features)
+    check_injectable(pcfg.bugs, candidate_features(cfg, pcfg))
     if pcfg.recipe_kind != "shard_map":
         return _recipe_runner(cfg, pcfg, ref_params, opt, opt_state, dev)
     pl = _Plumbing(cfg, pcfg, dev)
-    dtype = getattr(torch, cfg.param_dtype)
-    ref = {n: _on(v, dev, dtype) for n, v in _named(ref_params).items()}
+    dtype = param_dtypes(cfg)
+    ref = {n: _on(v, dev, dtype(n)) for n, v in _named(ref_params).items()}
     leaves = _leaves(pl, ref, dev, dtype)
 
     def _run(batch, rewrites=None) -> Trace:
@@ -549,11 +565,11 @@ def make_candidate_train_step(cfg, pcfg: ParallelConfig, ref_params, opt,
     return their own steps under the same contract (``parallel.pp``,
     ``parallel.pp1f1b``, ``precision.fp8``)."""
     dev = resolve_device(device)
-    check_injectable(pcfg.bugs, pcfg.features)
+    check_injectable(pcfg.bugs, candidate_features(cfg, pcfg))
     if pcfg.recipe_kind != "shard_map":
         return _recipe_train_step(cfg, pcfg, ref_params, opt, dev)
     pl = _Plumbing(cfg, pcfg, dev)
-    dtype = getattr(torch, cfg.param_dtype)
+    dtype = param_dtypes(cfg)
 
     def step(params: dict, opt_state: dict, batch: dict):
         leaves = _leaves(pl, params, dev, dtype)
@@ -564,7 +580,7 @@ def make_candidate_train_step(cfg, pcfg: ParallelConfig, ref_params, opt,
         tr.grad_norm = info.grad_norm
         return tr, new_p, new_st
 
-    params0 = {n: _on(v, dev, dtype).clone()
+    params0 = {n: _on(v, dev, dtype(n)).clone()
                for n, v in _named(ref_params).items()}
     return step, params0, opt.init(params0)
 
@@ -578,12 +594,12 @@ def make_plain_train_step(cfg, pcfg: ParallelConfig, ref_params, opt,
     batch on the device, ``step(params, opt_state, batch) -> (params,
     opt_state, loss)``."""
     dev = resolve_device(device)
-    check_injectable(pcfg.bugs, pcfg.features)
+    check_injectable(pcfg.bugs, candidate_features(cfg, pcfg))
     if pcfg.recipe_kind != "shard_map":
         raise ValueError(f"the plain step is the shard_map candidate's; "
                          f"recipe {pcfg.recipe_kind!r} has none")
     pl = _Plumbing(cfg, pcfg, dev)
-    dtype = getattr(torch, cfg.param_dtype)
+    dtype = param_dtypes(cfg)
 
     def prep(batch: dict) -> dict:
         return {k: _on(batch[k], dev) for k in ("tokens", "labels")}
@@ -598,6 +614,6 @@ def make_plain_train_step(cfg, pcfg: ParallelConfig, ref_params, opt,
         new_p, new_st, _ = _update(pcfg, opt, params, grads, opt_state)
         return new_p, new_st, loss[0]
 
-    params0 = {n: _on(v, dev, dtype).clone()
+    params0 = {n: _on(v, dev, dtype(n)).clone()
                for n, v in _named(ref_params).items()}
     return step, prep, params0, opt.init(params0)

@@ -97,7 +97,7 @@ def _pp_loss_call(model, pp_size: int, bugs=frozenset()):
         # dense attn_mlp blocks carry no aux loss
         for executed, canon in table:
             with ctx.scope(f"layers.{canon}"):
-                h = model.layers[executed](h, ctx)
+                h, _ = model.layers[executed](h, ctx)
         h = rmsnorm(model.final_norm, h)
         h = ctx.tap("final_norm_out", h)
         e = (model.embedding.word_embeddings if cfg.tie_embeddings

@@ -303,8 +303,8 @@ class PP1F1BEngine:
             leaves = {k[len(pre):]: v for k, v in p.items()
                       if k.startswith(pre)}
             with ctx.scope(f"layers.{local}"):
-                h = functional_call(self.model.layers[executed], leaves,
-                                    (h, ctx))
+                h, _ = functional_call(self.model.layers[executed], leaves,
+                                       (h, ctx))
         if s < self.pp - 1:
             return h
         h = rmsnorm(p["final_norm"], h)

@@ -23,10 +23,10 @@ to start the steady-state clock):
 The candidate side is RECIPE-GENERIC: ``CandidateStep`` is the contract —
 a stateful train step plus a runner factory for rewrite-mode localization
 and the recipe's machine epsilon — and ``CandidateStep.build`` dispatches
-on the ``ParallelConfig`` to the distributed candidate (dense / ZeRO-1),
-the staged or 1F1B pipeline (``parallel.pp``, ``parallel.pp1f1b``), or
-the FP8 recipes (``precision.fp8``, checked under BF16 epsilon per paper
-§6.7); the MoE candidate is not ported yet (ROADMAP A9) and raises.
+on the ``ParallelConfig`` to the distributed candidate (dense / MoE /
+ZeRO-1), the staged or 1F1B pipeline (``parallel.pp``,
+``parallel.pp1f1b``), or the FP8 recipes (``precision.fp8``, checked
+under BF16 epsilon per paper §6.7).
 
 With ``reestimate_every=R`` the supervised loop additionally re-runs the
 fused pair-step threshold estimate on the live batch every R steps and

@@ -69,13 +69,27 @@ def _boom():
     raise Boom("injected crash")
 
 
+# the reference's supervised bug matrix's MoE arch (reduced gpt-paper with
+# MoE blocks; tests/test_bug_coverage_matrix.py)
+MATRIX_MOE = dict(n_experts=4, top_k=2, d_ff_expert=128, capacity_factor=0.0)
+
+
+def _with_moe(cfg, moe_config):
+    return dataclasses.replace(cfg, arch_type="moe",
+                               moe=moe_config(**MATRIX_MOE))
+
+
 @functools.lru_cache(maxsize=None)
-def jax_params(name, n_layers, vocab):
-    """The JAX package's reduced config, its ``Model.init(PRNGKey(0))``
-    parameters as numpy, and its batch generator."""
+def jax_params(name, n_layers, vocab, moe=False):
+    """The JAX package's reduced config (with the matrix's MoE blocks if
+    ``moe``), its ``Model.init(PRNGKey(0))`` parameters as numpy, and its
+    batch generator."""
+    from repro.configs.base import MoEConfig as JaxMoE
     jcfg = dataclasses.replace(jax_get_config(name).reduced(),
                                n_layers=n_layers, vocab=vocab,
                                tie_embeddings=True)
+    if moe:
+        jcfg = _with_moe(jcfg, JaxMoE)
     jm = JaxModel(jcfg)
     params = jax.jit(jm.init)(jax.random.PRNGKey(0))
     named = {k: np.asarray(v) for k, v in flatten_named(params).items()}
@@ -93,10 +107,13 @@ def jax_batch_fn(jcfg, B, S):
 
 def port_supervisor(work_dir, name="gpt-paper", n_layers=2, vocab=256,
                     bugs=(), pcfg_kw=None, lr=1e-3, B=2, S=16, fault=None,
-                    **scfg):
-    jcfg, _, _, named = jax_params(name, n_layers, vocab)
+                    moe=False, **scfg):
+    from repro_torch.configs.base import MoEConfig
+    jcfg, _, _, named = jax_params(name, n_layers, vocab, moe)
     cfg = dataclasses.replace(get_config(name).reduced(), n_layers=n_layers,
                               vocab=vocab, tie_embeddings=True)
+    if moe:
+        cfg = _with_moe(cfg, MoEConfig)
     pcfg = ParallelConfig(bugs=frozenset(bugs),
                           **(pcfg_kw or dict(dp=2, tp=2)))
     return Supervisor(Model(cfg, device="cpu"), cfg, pcfg, AdamW(lr=lr),
@@ -244,22 +261,27 @@ def test_late_visible_bug_matches_the_jax_supervisor(forced_devices,
 # the supervised coverage matrix (the port's injectable bugs)
 # ---------------------------------------------------------------------------
 
-MATRIX = [dict(dp=2, tp=2), dict(dp=2, tp=2, sp=True),
-          dict(dp=2, cp=2, tp=2), dict(dp=2, zero1=True),
-          dict(pp=2), dict(pp=2, pp_schedule="1f1b", microbatches=2),
-          dict(fp8="tile128")]
+# (pcfg kwargs, MoE arch), in the reference matrix's order
+MATRIX = [(dict(dp=2, tp=2), False), (dict(dp=2, tp=2, sp=True), False),
+          (dict(dp=2, cp=2, tp=2), False), (dict(dp=2, zero1=True), False),
+          (dict(tp=2), True),
+          (dict(pp=2), False),
+          (dict(pp=2, pp_schedule="1f1b", microbatches=2), False),
+          (dict(fp8="tile128"), False)]
 
 
 @pytest.mark.parametrize("bug", sorted(injectable()))
 def test_bug_flagged_and_localized_under_supervision(tmp_path, bug):
     spec = BUGS[bug]
-    kw = next(k for k in MATRIX
-              if set(spec.requires) <= ParallelConfig(**k).features)
+    kw, moe = next(
+        (k, moe) for k, moe in MATRIX
+        if set(spec.requires) <= (ParallelConfig(**k).features
+                                  | ({"moe"} if moe else set())))
     # the reference's matrix: pipeline recipes at 4 layers and B 4
     pp = "pp" in spec.requires
     res = port_supervisor(tmp_path, bugs=[bug], pcfg_kw=kw, steps=3,
                           ckpt_every=2, n_layers=4 if pp else 2,
-                          B=4 if pp else 2).run()
+                          B=4 if pp else 2, moe=moe).run()
     assert res.flagged and res.first_bad_step is not None, res.summary()
     loc = res.localized_module or "-"
     assert (spec.expected_module == "loss"

@@ -589,7 +589,7 @@ def test_nan_fault_poisons_the_first_activation(pkg):
     ["--fault", "crash", "--fault-step", "-1"],
     ["--fault-step", "3"],
     ["--resume"],
-    ["--recipe", "moe"],
+    ["--recipe", "moe", "--arch", "gpt-paper"],
     ["--recipe", "pp", "--pp", "1"],
     ["--recipe", "pp-1f1b", "--microbatches", "1"],
     ["--recipe", "pp", "--tp", "2"],
@@ -600,7 +600,8 @@ def test_cli_refuses(argv):
         cli.main(argv + ["--device", "cpu"])
     assert ei.value.code not in (0, None)
     if "moe" in argv:
-        assert "ROADMAP A" in str(ei.value.code)
+        # the reference CLI's refusal of a non-MoE arch
+        assert "needs an MoE arch" in str(ei.value.code)
     if "pp" in argv or "pp-1f1b" in argv:
         # the reference CLI's own pipeline refusals
         assert any(w in str(ei.value.code) for w in (
