@@ -222,10 +222,47 @@ prints no result line):
              at step 0 with first bad step 0 at a ``layers.*.mlp`` module
              (reduced: the CLI checkpoints both full-width states at step
              0, some 44 GB, against the card machine's 45 GiB of writes).
+23a. mla_main (23a-23e run after 22d, with every earlier model freed) —
+             ``deepseek-v2-236b`` at its published width (d 5120, 128
+             heads, MLA with q LoRA 1536, kv LoRA 512, nope 128, rope 64,
+             v 128, vocab 102400, untied, bf16) cut to its dense first
+             layer (d_ff 12288) for memory, B 1 x S 4096, seed 0: first the
+             reckoning (parameters, one traced reference step's seconds,
+             peak memory and section sizes), then a clean check (the
+             reference runner as candidate) under bf16 thresholds must
+             PASS with 5 + 1 rel-err launches and no other kernel, finite
+             trace leaves and ``final_norm_out`` of (1, 4096, 5120); prints
+             each step's seconds and the peak memory;
+23b. mla_control — ``dense_layers.0.self_attention.linear_uq.w`` (the q
+             LoRA, a branch only the full config takes) doubled in the
+             candidate must FAIL and be localized to layer 0's
+             ``self_attention``;
+23c. mla_decode — the same model at f32 compute (bf16 parameters) over
+             B 4 x T 1024 tokens through ``make_decode_runner``: the naive
+             MLA decode (reference) against the absorbed one (candidate),
+             ``ttrace_check(estimate=False)`` at f32 eps and margin 64,
+             must PASS with every ``decode.final_cache.*`` record
+             bit-identical; ``decode_stale_rope_pos`` must FAIL from some
+             ``decode.t{t}``, t >= 1, every logit finite; one rel-err
+             launch a check; printed beside: the clean pair at bf16
+             compute under bf16 eps, each implementation's ms per decode
+             step, the cache's 576 values a token against per-head K/V's
+             40960, the peak memory;
+23d. decode_consistency — full-width, full-depth ``tinyllama-1.1b`` at f32
+             compute, B 2 x 256 tokens: the decode-stepped logits within
+             1e-4 normwise of ``forward`` + ``unembed``, and
+             ``make_prefill_step``'s of the last decode step's; the values
+             at bf16 compute printed beside;
+23e. serve_cli — ``python -m repro_torch.launch.serve --batch 4
+             --prompt-len 32 --gen 16`` for full-width ``tinyllama-1.1b``
+             and ``--reduced`` ``deepseek-v2-236b``, ``mixtral-8x7b`` (the
+             sliding-window ring, MoE at decode) and ``rwkv6-7b`` (the
+             state continuation) must each exit 0 and print its tokens per
+             second.
 
 Every kernel's launch count is set to 0 just before each path (phases 4,
-8, 12, 13, 14, 15a, 15b, 15c, 17, 18, 20a-20e, 21a-21d and 22a-22c) and
-read just after it.  At the end come the card's name and power
+8, 12, 13, 14, 15a, 15b, 15c, 17, 18, 20a-20e, 21a-21d, 22a-22c and
+23a-23c) and read just after it.  At the end come the card's name and power
 limit, then a ``{"kernels": [...]}`` JSON object, then the last line,
 ``{"ok": true, "device": {...}}``.
 """
@@ -355,6 +392,18 @@ MOE_PARAMS_PER_LAYER = 8     # 2 norms, qkv, proj, router, 3 expert stacks
 # 2^-7 relative, taken here with a factor 2 of slack
 MOE_FLASH_REL_TOL = 2.0 ** -6
 # the records each MoE check prints beside its verdict
+MLA_ARCH = "deepseek-v2-236b"
+MLA_LAYERS = 1               # the published dense first layer (memory)
+MLA_BATCH = (1, 4096)
+MLA_PARAMS_PER_LAYER = 14    # 2 norms, 9 MLA (q LoRA), 3 SwiGLU
+MLA_CONTROL = "dense_layers.0.self_attention.linear_uq.w"
+MLA_DECODE = (4, 1024)       # B x T decode tokens of phase 23c
+DECODE_MARGIN = 64.0         # tests/test_decode_ttrace.py's margin
+STALE_ROPE = "decode_stale_rope_pos"
+CONSISTENCY = ("tinyllama-1.1b", 2, 256)    # arch, B, T of phase 23d
+CONSISTENCY_TOL = 1e-4       # normwise relative, at f32 compute
+SERVE_RUNS = (("tinyllama-1.1b", False), ("deepseek-v2-236b", True),
+              ("mixtral-8x7b", True), ("rwkv6-7b", True))
 MOE_WATCH = ("layers.0.mlp/output", "layers.0.mlp/router_logits",
              "layers.0.mlp.router", "layers.0.mlp.experts.down")
 
@@ -498,42 +547,63 @@ def packed_elems(leaves, block):
 
 
 def main_path(device, cfg, batch_size, seq, eps):
-    """``ttrace_check`` of a clean candidate; returns (result, stats)."""
-    from repro_torch.core.checker import collect_section_pairs
-    from repro_torch.core.harness import make_model_runner, ttrace_check
+    """``ttrace_check`` of a clean candidate of a new seeded model; returns
+    (result, stats, model, batch)."""
     from repro_torch.data.synthetic import make_batch
-    from repro_torch.kernels.relerr import DEFAULT_BLOCK, packed_sq_norms
     from repro_torch.models.model import Model
-    from repro_torch.optim.adamw import AdamW
 
     model = Model(cfg, seed=0, device=device)
     batch = make_batch(cfg, batch_size, seq, seed=0, device=device)
+    res, stats = model_check(model, batch, eps)
+    return res, stats, model, batch
+
+
+def model_check(model, batch, eps):
+    """``ttrace_check`` (AdamW, lr 1e-3) of ``make_model_runner(model)``
+    against itself; every launch count set to 0 just before and read just
+    after.  Returns (result, stats)."""
+    import torch
+    from repro_torch.core.checker import collect_section_pairs
+    from repro_torch.core.harness import make_model_runner, ttrace_check
+    from repro_torch.kernels.relerr import DEFAULT_BLOCK, packed_sq_norms
+    from repro_torch.optim.adamw import AdamW
+
+    dev = model.device
     opt = AdamW(lr=1e-3)
     ref_calls, cand_calls, marks = [], [], {}
-    ref = timed_runner(make_model_runner(model, opt, device=device), ref_calls)
-    cand_run = timed_runner(make_model_runner(model, opt, device=device),
+    ref = timed_runner(make_model_runner(model, opt, device=dev), ref_calls)
+    cand_run = timed_runner(make_model_runner(model, opt, device=dev),
                             cand_calls)
 
     def cand(batch, rewrites=None):
         marks.setdefault("after_estimate", packed_sq_norms.launches)
         return cand_run(batch, rewrites)
 
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
     reset_counts()
     res = ttrace_check(ref, cand, batch, eps=eps)
-    launches = read_counts()["packed_sq_norms"]
+    counts = read_counts()
+    launches = counts["packed_sq_norms"]
     _, la, _, _ = collect_section_pairs(res.reference, res.candidate)
+    seconds = {"1_reference": ref_calls[0],
+               "2_thresholds": res.seconds["estimate"] - ref_calls[0],
+               "3_candidate": res.seconds["candidate"],
+               "4_compare": res.seconds["compare"]}
+    if "localize" in res.seconds:
+        seconds["5_localize"] = res.seconds["localize"]
     stats = dict(
         launches=launches,
         estimate_launches=marks["after_estimate"],
         compare_launches=launches - marks["after_estimate"],
+        other_launches={k: v for k, v in counts.items()
+                        if k != "packed_sq_norms" and v},
         tensors=len(res.report.records),
         packed_elems=packed_elems(la, DEFAULT_BLOCK),
-        seconds={"1_reference": ref_calls[0],
-                 "2_thresholds": res.seconds["estimate"] - ref_calls[0],
-                 "3_candidate": res.seconds["candidate"],
-                 "4_compare": res.seconds["compare"]},
-        loss=res.reference.loss)
-    return res, stats, model, batch
+        seconds=seconds, loss=res.reference.loss,
+        peak_gib=(torch.cuda.max_memory_allocated(dev) / 2**30
+                  if dev.type == "cuda" else None))
+    return res, stats
 
 
 def check_trace_shapes(res, cfg, batch_size, seq, taps_per_layer=5,
@@ -2490,10 +2560,10 @@ def records_of(res, names) -> dict:
             for r in res.report.records if r.name in names}
 
 
-def moe_reference_step(cfg, model, batch):
+def reference_step(cfg, model, batch):
     """One traced reference step alone (AdamW, lr 1e-3): its seconds, its
     peak device memory and the GB each trace section holds — the
-    reckoning that sizes phases 22a-22c."""
+    reckoning that sizes phases 22a-22c and 23a-23b."""
     import torch
     from repro_torch.core.collector import SECTION_FIELDS
     from repro_torch.core.harness import make_model_runner
@@ -2515,7 +2585,7 @@ def moe_reference_step(cfg, model, batch):
                peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30,
                section_gb=sections)
     del tr
-    log(f"moe reference step ({cfg.name}, {cfg.n_layers} layer(s), tied "
+    log(f"reference step ({cfg.name}, {cfg.n_layers} layer(s), tied "
         f"{cfg.tie_embeddings}, {n_params} parameters, batch "
         f"{tuple(batch['tokens'].shape)}): " + json.dumps(out))
     return out
@@ -2530,7 +2600,7 @@ def moe_untied(cfg, device, B, S):
     untied = dataclasses.replace(cfg, tie_embeddings=False)
     model = Model(untied, seed=0, device=device)
     batch = make_batch(untied, B, S, seed=0, device=device)
-    step = moe_reference_step(untied, model, batch)
+    step = reference_step(untied, model, batch)
     res, stats, _ = dist_check(untied, model, batch, dict(tp=2))
     log(f"moe untied: reference step peak {step['peak_gib']} GiB, clean "
         f"tp2 check peak {stats['peak_gib']} GiB (passed {res.passed})")
@@ -2824,7 +2894,7 @@ def moe_phases(device, phase):
         f"{cfg.tie_embeddings}, built in {time.perf_counter() - t0:.2f} s")
     batch = make_batch(cfg, B, S, seed=0, device=device)
     out["moe_reference_step"] = phase(
-        "moe_reference_step", lambda: moe_reference_step(cfg, model, batch))
+        "moe_reference_step", lambda: reference_step(cfg, model, batch))
     main = phase("moe_main", lambda: moe_main(cfg, model, batch, B, S))
     if main is not None:
         out["moe_main"], clean = main
@@ -2843,6 +2913,359 @@ def moe_phases(device, phase):
                                                      *MOE_FLASH_BATCH))
     with tempfile.TemporaryDirectory(prefix="chip_smoke_moe_") as root:
         out["moe_cli"] = phase("moe_cli", lambda: moe_cli(root))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phases 23a-23e: Multi-head Latent Attention and the decode path —
+# full-width deepseek-v2-236b's first layer, full-depth tinyllama-1.1b
+# ---------------------------------------------------------------------------
+
+def mla_config():
+    from repro_torch.configs.base import get_config
+    return dataclasses.replace(get_config(MLA_ARCH), n_layers=MLA_LAYERS)
+
+
+def mla_main(cfg, model, batch, B, S):
+    """23a: a clean check of the 1-layer model (the reference runner as
+    candidate) must PASS under bf16 thresholds with 5 + 1 rel-err
+    launches, finite trace leaves and ``final_norm_out`` of (B, S, d)."""
+    from repro_torch.core.thresholds import MACHINE_EPS
+    res, stats = model_check(model, batch, MACHINE_EPS["bfloat16"])
+    ratio, where = worst_record(res)
+    log(res.summary())
+    log(f"mla_main: largest rel-err / threshold {ratio:.4f} ({where}); "
+        f"packed_sq_norms launches: estimate {stats['estimate_launches']}, "
+        f"compare {stats['compare_launches']}; other kernels "
+        f"{stats['other_launches']}; step seconds "
+        f"{json.dumps(stats['seconds'])}; peak device memory "
+        f"{stats['peak_gib']} GiB")
+    if not res.passed:
+        raise AssertionError("clean mla_main check did not PASS")
+    got = (stats["estimate_launches"], stats["compare_launches"])
+    if got != (5, 1) or stats["other_launches"]:
+        raise AssertionError(f"mla_main: packed_sq_norms launches {got}, "
+                             f"expected (5, 1); other kernels "
+                             f"{stats['other_launches']}")
+    check_trace_shapes(res, cfg, B, S, params_per_layer=MLA_PARAMS_PER_LAYER)
+    return dict(stats, worst=ratio, worst_at=where)
+
+
+def doubled(model, name):
+    """A runner wrapper that doubles parameter ``name`` of ``model`` in
+    place for each run and halves it back after (exact: a power of 2)."""
+    import torch
+    w = dict(model.named_parameters())[name]
+
+    def wrap(run):
+        def wrapped(batch, rewrites=None):
+            with torch.no_grad():
+                w.mul_(2.0)
+            try:
+                return run(batch, rewrites)
+            finally:
+                with torch.no_grad():
+                    w.mul_(0.5)
+        return wrapped
+    return wrap
+
+
+def mla_control(cfg, model, batch, B, S):
+    """23b: ``MLA_CONTROL`` (the q-LoRA up-projection, a branch only the
+    full config has) doubled in the candidate must FAIL and be localized
+    to layer 0's ``self_attention``: by its tap scope,
+    ``layers.0.self_attention`` (rewrite mode), or by its parameters' path,
+    ``dense_layers.0.self_attention*`` (when only gradients flag).
+    ``ttrace_check`` keeps every section the localizer does not read on
+    the host while it runs, which is what fits its two traced runs on the
+    card at this size; after it, both traces must be whole again, every
+    leaf back on the card."""
+    import torch
+    from repro_torch.core.collector import SECTION_FIELDS
+    from repro_torch.core.harness import make_model_runner, ttrace_check
+    from repro_torch.core.thresholds import MACHINE_EPS
+    from repro_torch.optim.adamw import AdamW
+    dev = model.device
+    opt = AdamW(lr=1e-3)
+    ref = make_model_runner(model, opt, device=dev)
+    cand = doubled(model, MLA_CONTROL)(make_model_runner(model, opt,
+                                                         device=dev))
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    res = ttrace_check(ref, cand, batch, eps=MACHINE_EPS["bfloat16"])
+    counts = read_counts()
+    stats = dict(counts=counts, seconds=res.seconds,
+                 peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30,
+                 localized=res.localized_module)
+    log(res.summary())
+    log(f"mla_control (doubled {MLA_CONTROL}): passed={res.passed}, "
+        f"localized {res.localized_module!r}; launches {counts}; step "
+        f"seconds {json.dumps(res.seconds)}; peak device memory "
+        f"{stats['peak_gib']} GiB")
+    loc = res.localized_module or ""
+    if res.passed or not loc.startswith(("layers.0.self_attention",
+                                         "dense_layers.0.self_attention")):
+        raise AssertionError(f"doubled {MLA_CONTROL}: passed={res.passed}, "
+                             f"localized {loc!r}")
+    off = [f"{f}:{n}" for tr in (res.reference, res.candidate)
+           for f in SECTION_FIELDS for n, x in getattr(tr, f).raw_items()
+           if x.device != dev]
+    if off:
+        raise AssertionError(f"mla_control: {len(off)} trace leaves left "
+                             f"off the card after the localization, e.g. "
+                             f"{off[:3]}")
+    check_trace_shapes(res, cfg, B, S, params_per_layer=MLA_PARAMS_PER_LAYER)
+    return stats
+
+
+@contextlib.contextmanager
+def compute_dtype(model, dtype):
+    """``model`` computing in ``dtype`` for the span of the block (its
+    parameters stay as they are; every op follows the embedding's dtype)."""
+    saved = model.cdtype
+    model.cdtype = dtype
+    try:
+        yield model
+    finally:
+        model.cdtype = saved
+
+
+def decode_runner(model, impl, bugs=frozenset()):
+    import functools
+    from repro_torch.core.harness import make_decode_runner
+    return make_decode_runner(model, functools.partial(
+        model.decode_step, mla_impl=impl, mla_bugs=frozenset(bugs)),
+        device=model.device)
+
+
+def decode_check(model, batch, eps, cand, ref_trace=None):
+    """``ttrace_check(estimate=False, localize=False)`` of the naive MLA
+    decode (or ``ref_trace``, a trace it gave) against ``cand``, floor-only
+    thresholds at ``eps`` and ``DECODE_MARGIN``; counts set to 0 just
+    before and read just after.  Returns (result, counts)."""
+    from repro_torch.core.harness import ttrace_check
+    ref = (decode_runner(model, "naive") if ref_trace is None
+           else (lambda b, rewrites=None: ref_trace))
+    reset_counts()
+    res = ttrace_check(ref, cand, batch, eps=eps, margin=DECODE_MARGIN,
+                       estimate=False, localize=False)
+    return res, read_counts()
+
+
+def first_flag(res):
+    first = res.report.first_flagged_activation()
+    return None if first is None else (first.name, first.rel_err,
+                                       first.threshold)
+
+
+def mla_decode(cfg, model, B, T):
+    """23c: naive (reference) against absorbed (candidate) MLA decode over
+    B x T tokens at f32 compute (bf16 parameters), floor-only thresholds
+    (f32 eps, margin 64): the clean pair must PASS with every
+    ``decode.final_cache.*`` record bit-identical (one layer: both write
+    the cache through the same ``_ckv`` of the same embeddings), and
+    ``decode_stale_rope_pos`` must FAIL from some ``decode.t{t}``, t >= 1,
+    every logit finite; one rel-err launch a check and no other kernel.
+    Printed beside: the clean pair at bf16 compute under bf16 eps, each
+    implementation's ms per decode step, the cache's values a token
+    against per-head K/V's and the peak memory."""
+    import torch
+    from repro_torch.core.thresholds import MACHINE_EPS
+    from repro_torch.data.synthetic import make_batch
+    dev = model.device
+    batch = {"tokens": make_batch(cfg, B, T, seed=0, device=dev)["tokens"]}
+    m = cfg.mla
+    out = {"cache_values_per_token": m.kv_lora_rank + m.qk_rope_dim,
+           "per_head_kv_values_per_token": cfg.n_heads * (
+               m.qk_nope_dim + m.qk_rope_dim + m.v_head_dim)}
+    out["cache_bytes_per_token_f32"] = 4 * out["cache_values_per_token"]
+    torch.cuda.reset_peak_memory_stats(dev)
+    with compute_dtype(model, torch.float32):
+        res, counts = decode_check(model, batch, MACHINE_EPS["float32"],
+                                   decode_runner(model, "absorbed"))
+        ratio, where = worst_record(res)
+        caches = [n for n in res.reference.activations
+                  if n.startswith("decode.final_cache.")]
+        differ = [n for n in caches if not torch.equal(
+            res.reference.activations.raw(n), res.candidate.activations.raw(n))]
+        out["clean"] = dict(passed=res.passed, worst=ratio, worst_at=where,
+                            records=len(res.report.records), counts=counts,
+                            caches=caches, caches_differ=differ,
+                            threshold=res.thresholds.threshold(
+                                "activation", "decode.t0/logits"),
+                            ms_per_step={
+                                "naive": res.seconds["estimate"] / T * 1e3,
+                                "absorbed": res.seconds["candidate"] / T * 1e3})
+        log(f"mla_decode clean (f32 compute, f32 eps, margin "
+            f"{DECODE_MARGIN}): " + json.dumps(out["clean"]))
+        ref_trace = res.reference
+        del res
+        stale, scounts = decode_check(
+            model, batch, MACHINE_EPS["float32"],
+            decode_runner(model, "absorbed", {STALE_ROPE}), ref_trace)
+        finite = all(bool(x.isfinite().all()) for n, x in
+                     stale.candidate.activations.raw_items()
+                     if n.endswith("/logits"))
+        out["stale"] = dict(passed=stale.passed, first=first_flag(stale),
+                            flagged=sum(r.flagged for r in
+                                        stale.report.records),
+                            finite=finite, counts=scounts,
+                            ms_per_step=stale.seconds["candidate"] / T * 1e3)
+        log(f"mla_decode {STALE_ROPE}: " + json.dumps(out["stale"]))
+        del stale, ref_trace
+    with compute_dtype(model, torch.bfloat16):
+        bf, bcounts = decode_check(model, batch, MACHINE_EPS["bfloat16"],
+                                   decode_runner(model, "absorbed"))
+        bratio, bwhere = worst_record(bf)
+        out["bf16"] = dict(passed=bf.passed, worst=bratio, worst_at=bwhere,
+                           counts=bcounts, threshold=bf.thresholds.threshold(
+                               "activation", "decode.t0/logits"),
+                           ms_per_step={
+                               "naive": bf.seconds["estimate"] / T * 1e3,
+                               "absorbed": bf.seconds["candidate"] / T * 1e3})
+        log("mla_decode clean at bf16 compute (bf16 eps, printed beside): "
+            + json.dumps(out["bf16"]))
+        del bf
+    out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    log(f"mla_decode: cache {out['cache_values_per_token']} values a token "
+        f"({out['cache_bytes_per_token_f32']} bytes at f32 compute) against "
+        f"{out['per_head_kv_values_per_token']} for per-head K/V; peak "
+        f"device memory {out['peak_gib']} GiB")
+    clean, st = out["clean"], out["stale"]
+    for name, c in (("clean", clean["counts"]), ("stale", st["counts"])):
+        if c["packed_sq_norms"] != 1 or any(
+                v for k, v in c.items() if k != "packed_sq_norms"):
+            raise AssertionError(f"mla_decode {name}: launches {c}")
+    if not clean["passed"] or clean["caches_differ"] or not clean["caches"]:
+        raise AssertionError(f"clean MLA decode: passed={clean['passed']}, "
+                             f"caches differing {clean['caches_differ']}")
+    first = st["first"]
+    if (st["passed"] or not st["finite"] or first is None
+            or not first[0].startswith("decode.t")
+            or first[0].startswith("decode.t0/")):
+        raise AssertionError(f"{STALE_ROPE}: passed={st['passed']}, first "
+                             f"flagged {first}, finite {st['finite']}")
+    return out
+
+
+def decode_consistency(device):
+    """23d: full-width, full-depth ``CONSISTENCY[0]`` at f32 compute: the
+    logits of the decode path stepped over B x T tokens must match
+    ``forward`` + ``unembed`` within ``CONSISTENCY_TOL`` normwise, and
+    ``make_prefill_step``'s the last decode step's; the bf16-compute
+    values printed beside."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models.model import Model
+    name, B, T = CONSISTENCY
+    cfg = get_config(name)
+    t0 = time.perf_counter()
+    model = Model(cfg, seed=0, device=device)
+    build_s = time.perf_counter() - t0
+    batch = make_batch(cfg, B, T, seed=0, device=device)
+    out = {"build_s": build_s}
+    for label, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        with compute_dtype(model, dt), torch.no_grad():
+            t0 = time.perf_counter()
+            want = model.unembed(model.forward({"tokens": batch["tokens"]}))
+            pre = make_prefill_step(model)({"tokens": batch["tokens"]})
+            torch.cuda.synchronize()
+            fwd_s = time.perf_counter() - t0
+            step = make_serve_step(model)
+            cache = model.init_cache(B, T)
+            got = []
+            t0 = time.perf_counter()
+            for t in range(T):
+                lg, cache = step(cache, {"tokens": batch["tokens"][:, t:t + 1],
+                                         "pos": t})
+                got.append(lg)
+            torch.cuda.synchronize()
+            dec_s = time.perf_counter() - t0
+            got = torch.cat(got, dim=1)
+            out[label] = dict(decode_vs_forward=normwise(got, want.double()),
+                              prefill_vs_last=normwise(pre,
+                                                       got[:, -1:].double()),
+                              finite=bool(got.isfinite().all()),
+                              forward_and_prefill_s=fwd_s,
+                              decode_ms_per_step=dec_s / T * 1e3)
+            del want, pre, got, cache
+        log(f"decode_consistency {name} ({cfg.n_layers} layers) {label} "
+            f"compute: " + json.dumps(out[label]))
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    f = out["f32"]
+    if not (f["finite"] and f["decode_vs_forward"] <= CONSISTENCY_TOL
+            and f["prefill_vs_last"] <= CONSISTENCY_TOL):
+        raise AssertionError(f"decode_consistency at f32: {f}")
+    return out
+
+
+def serve_cli():
+    """23e: ``python -m repro_torch.launch.serve`` for each of
+    ``SERVE_RUNS`` (``--batch 4 --prompt-len 32 --gen 16``) must exit 0
+    and print its tokens per second."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = {}
+    for arch, reduced in SERVE_RUNS:
+        argv = ["--arch", arch, "--batch", "4", "--prompt-len", "32",
+                "--gen", "16", "--device", "cuda"] + (
+                    ["--reduced"] if reduced else [])
+        t0 = time.perf_counter()
+        cli = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.serve", *argv],
+            capture_output=True, text=True, timeout=300, env=env, cwd=ROOT)
+        secs = time.perf_counter() - t0
+        lines = cli.stdout.strip().splitlines()
+        log(f"--- serve {' '.join(argv)}: rc {cli.returncode} in "
+            f"{secs:.2f} s\n" + "\n".join(lines[-2:]))
+        rate = [ln.rsplit("(", 1)[1].split(" tok/s")[0] for ln in lines
+                if "tok/s)" in ln]
+        if cli.returncode != 0 or not rate:
+            raise AssertionError(f"serve {arch}: rc {cli.returncode}\n"
+                                 f"{cli.stdout[-2000:]}\n"
+                                 f"{cli.stderr[-3000:]}")
+        out[arch + (" --reduced" if reduced else "")] = dict(
+            seconds=secs, tok_per_s=float(rate[-1]))
+    return out
+
+
+def mla_phases(device, phase):
+    """Phases 23a-23e (every model and trace freed at the end)."""
+    import torch
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.models.model import Model
+    cfg = mla_config()
+    B, S = MLA_BATCH
+    t0 = time.perf_counter()
+    model = Model(cfg, seed=0, device=device)
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"mla model {cfg.name}: {MLA_LAYERS} layer(s), {n_params} "
+        f"parameters, built in {time.perf_counter() - t0:.2f} s")
+    batch = make_batch(cfg, B, S, seed=0, device=device)
+    out = {"mla_reference_step": phase(
+        "mla_reference_step", lambda: reference_step(cfg, model, batch))}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["mla_main"] = phase("mla_main",
+                            lambda: mla_main(cfg, model, batch, B, S))
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["mla_control"] = phase("mla_control",
+                               lambda: mla_control(cfg, model, batch, B, S))
+    del batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["mla_decode"] = phase("mla_decode",
+                              lambda: mla_decode(cfg, model, *MLA_DECODE))
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["decode_consistency"] = phase("decode_consistency",
+                                      lambda: decode_consistency(device))
+    out["serve_cli"] = phase("serve_cli", serve_cli)
     return out
 
 
@@ -3029,6 +3452,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     moe_phases(dev, phase)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mla_phases(dev, phase)
     if failures:
         log(f"FAILED phases: {failures}")
         return 1

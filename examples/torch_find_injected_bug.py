@@ -4,9 +4,10 @@ The counterpart of ``examples/find_injected_bug.py``: injects a bug from
 the registry (default: paper bug 1, the tensor-parallel vocab embedding's
 wrong ownership mask) into the port's manual-collectives distributed GPT,
 whose ranks are emulated in one process (a ``pp_*`` bug into the staged
-or 1F1B pipeline, 2 stages), then runs threshold estimation,
-differential testing against the single-device model, and rewrite-mode
-localization.
+or 1F1B pipeline, 2 stages; an MoE bug such as paper bug 6,
+``moe_router_not_synced``, into reduced ``mixtral-8x7b``'s expert-parallel
+candidate), then runs threshold estimation, differential testing against
+the single-device model, and rewrite-mode localization.
 
     PYTHONPATH=src python examples/torch_find_injected_bug.py [bug_id] \\
         [--device cuda|cpu]
@@ -35,8 +36,10 @@ def main():
           f"  (paper analogue: {spec.paper_analogue})")
 
     req = set(spec.requires)
-    # pipeline bugs need layers for two stages to disagree on
-    cfg = dataclasses.replace(get_config("gpt-paper").reduced(),
+    # pipeline bugs need layers for two stages to disagree on; MoE bugs an
+    # MoE arch (S 32 is within reduced mixtral's window of 64)
+    arch = "mixtral-8x7b" if "moe" in req else "gpt-paper"
+    cfg = dataclasses.replace(get_config(arch).reduced(),
                               n_layers=4 if "pp" in req else 2, vocab=512,
                               tie_embeddings=True)
     model = Model(cfg, seed=0, device=args.device)

@@ -1,11 +1,11 @@
-"""Architecture configuration: the dense, MoE and SSM subset of
+"""Architecture configuration: the dense, MoE, MLA and SSM subset of
 ``repro/configs/base.py``.
 
-The port carries only the fields the dense decoder, MoE and RWKV-6 paths
-read (``MoEConfig`` and ``SSMConfig`` are copied whole, shared-expert and
-mamba2 fields included); MLA, hybrid and frontend fields arrive with the
-slices that port those models.  ``reduced()`` gives the same CPU-smoke
-variant as the reference.
+The port carries only the fields the dense decoder, MoE, MLA and RWKV-6
+paths read (``MoEConfig``, ``MLAConfig`` and ``SSMConfig`` are copied
+whole, shared-expert and mamba2 fields included); hybrid and frontend
+fields arrive with the slices that port those models.  ``reduced()``
+gives the same CPU-smoke variant as the reference.
 """
 from __future__ import annotations
 
@@ -24,6 +24,15 @@ class MoEConfig:
     n_dense_layers: int = 0    # leading layers that use a dense FFN instead of MoE
     router_aux_coef: float = 0.01
     capacity_factor: float = 2.0   # <= 0 means dropless (cap = n_tokens)
+
+
+@dataclass(frozen=True)
+class MLAConfig:
+    kv_lora_rank: int = 512
+    q_lora_rank: int = 0       # 0 => full-rank q projection
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_head_dim: int = 128
 
 
 @dataclass(frozen=True)
@@ -53,7 +62,7 @@ class ArchConfig:
     source: str = ""            # citation
 
     # attention flavour
-    attn: str = "full"          # full | swa | none (ssm)
+    attn: str = "full"          # full | swa | mla | none (ssm)
     window: int = 0             # sliding-window size when attn == "swa"
     rope_theta: float = 10_000.0
     causal: bool = True
@@ -61,6 +70,7 @@ class ArchConfig:
     tie_embeddings: bool = False
 
     moe: Optional[MoEConfig] = None
+    mla: Optional[MLAConfig] = None
     ssm: Optional[SSMConfig] = None
 
     # numerics
@@ -70,6 +80,10 @@ class ArchConfig:
     def __post_init__(self):
         if self.d_head == 0:
             object.__setattr__(self, "d_head", self.d_model // self.n_heads)
+
+    @property
+    def is_decoder(self) -> bool:
+        return self.causal
 
     def reduced(self) -> "ArchConfig":
         """CPU smoke variant of the same family: 2 layers, d_model<=256,
@@ -88,6 +102,10 @@ class ArchConfig:
                 n_dense_layers=min(self.moe.n_dense_layers, 1),
                 capacity_factor=0.0,   # dropless: exact differential testing
             )
+        if self.mla is not None:
+            kw["mla"] = MLAConfig(
+                kv_lora_rank=64, q_lora_rank=0, qk_nope_dim=32, qk_rope_dim=16,
+                v_head_dim=32)
         if self.ssm is not None:
             kw["ssm"] = dataclasses.replace(
                 self.ssm, d_state=16, d_head=32, chunk=32, decay_lora=16,
@@ -121,7 +139,7 @@ def register(cfg: ArchConfig) -> ArchConfig:
 def get_config(name: str) -> ArchConfig:
     # importing each per-arch module registers it
     from repro_torch.configs import (  # noqa: F401
-        gpt_paper, mixtral_8x7b, rwkv6_7b, tinyllama_11b)
+        deepseek_v2_236b, gpt_paper, mixtral_8x7b, rwkv6_7b, tinyllama_11b)
     try:
         return _REGISTRY[name]
     except KeyError:

@@ -16,6 +16,7 @@ A *runner* is ``fn(batch, rewrites) -> Trace``.  The harness performs:
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from dataclasses import dataclass, field
 from typing import Callable, Optional
@@ -26,8 +27,8 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core.checker import (Report, compare_traces,
                                       localize_with_rewrites)
-from repro_torch.core.collector import (Trace, trace_pair_step,
-                                        trace_train_step)
+from repro_torch.core.collector import (SECTION_FIELDS, Trace,
+                                        trace_pair_step, trace_train_step)
 from repro_torch.core.thresholds import (MACHINE_EPS, Thresholds,
                                          estimate_thresholds)
 
@@ -107,17 +108,95 @@ def make_model_runner(model, opt=None, opt_state=None,
     return run
 
 
+def make_decode_runner(model, decode_fn: Optional[Callable] = None,
+                       device="cuda") -> Callable:
+    """Inference-mode runner (paper §7's extension to inference): steps the
+    decode path over ``batch["tokens"]`` (B, T) from an empty cache of T
+    positions, tapping each step's logits as ``decode.t{t}/logits`` and
+    each leaf of the final cache as ``decode.final_cache.{name}/value``
+    (``name`` as the reference's ``flatten_named`` gives it).  Leaves stay
+    on the device; ``loss`` is the mean of the last step's logits.
+    ``decode_fn(caches, tokens, pos)`` defaults to ``model.decode_step``;
+    pass another implementation (e.g. ``functools.partial(
+    model.decode_step, mla_impl="naive")``) for the other side.
+
+    A decode runner has no rewrite surface: check it with ``ttrace_check(
+    ..., estimate=False, localize=False)``."""
+    from repro_torch.checkpoint.store import flatten_named
+
+    dev = runner_device(model, device)
+    fn = decode_fn or model.decode_step
+
+    def run(batch, rewrites=None) -> Trace:
+        if rewrites:
+            raise ValueError("a decode runner takes no rewrites; pass "
+                             "localize=False to ttrace_check")
+        toks, _ = inputs_on(dev, {"tokens": batch["tokens"]})
+        toks = toks["tokens"]
+        B, T = toks.shape
+        cache = model.init_cache(B, T)
+        tr = Trace()
+        with torch.no_grad():
+            for t in range(T):
+                logits, cache = fn(cache, toks[:, t:t + 1], t)
+                tr.activations[f"decode.t{t}/logits"] = logits
+        for name, leaf in flatten_named(cache).items():
+            tr.activations[f"decode.final_cache.{name}/value"] = leaf
+        tr.meta["fwd_order"] = list(tr.activations)
+        tr.loss = float(logits.float().mean())
+        return tr
+
+    return run
+
+
 def _sync():
     if torch.cuda.is_initialized():
         torch.cuda.synchronize()
 
 
+def _to_host(sec, name) -> Optional[torch.device]:
+    """Moves leaf ``name`` of ``sec`` to the host; its device if it moved."""
+    x = sec.raw(name)
+    if not isinstance(x, torch.Tensor) or x.device.type == "cpu":
+        return None
+    sec[name] = x.cpu()
+    return x.device
+
+
+@contextlib.contextmanager
+def _on_host(sections):
+    """Every device leaf of ``sections`` on the host for the span of the
+    block, back on its device after: frees the device for the
+    localizer's two traced runs."""
+    moved = [(sec, name, dev) for sec in sections for name in list(sec)
+             if (dev := _to_host(sec, name)) is not None]
+    try:
+        yield
+    finally:
+        for sec, name, dev in moved:
+            sec[name] = sec.raw(name).to(dev)
+
+
 def ttrace_check(reference: Callable, candidate: Callable, batch: dict,
                  eps: float = MACHINE_EPS["float32"], margin: float = 8.0,
-                 localize: bool = True, seed: int = 0) -> TTraceResult:
+                 localize: bool = True, seed: int = 0,
+                 estimate: bool = True) -> TTraceResult:
+    """``estimate=False`` skips step 1-2's estimate: floor-only thresholds,
+    ``margin * floor_mult * eps`` for every tensor (decode runners have
+    integer inputs and no rewrite surface); ``seconds["estimate"]`` is
+    then the reference run.
+
+    Step 5 reads only the reference's activations: every other section
+    of the two traces waits on the host while it runs (the time is in
+    ``seconds["localize"]``)."""
     seconds = {}
     t0 = time.perf_counter()
-    thr, ref_trace = estimate_thresholds(reference, batch, eps, margin, seed)
+    if estimate:
+        thr, ref_trace = estimate_thresholds(reference, batch, eps, margin,
+                                             seed)
+    else:
+        thr = Thresholds(eps=eps, margin=margin)
+        ref_trace = reference(batch, None)
     _sync()
     t1 = time.perf_counter()
     cand_trace = candidate(batch, None)
@@ -128,8 +207,12 @@ def ttrace_check(reference: Callable, candidate: Callable, batch: dict,
     seconds.update(estimate=t1 - t0, candidate=t2 - t1, compare=t3 - t2)
     loc = None
     if localize and not report.passed:
-        loc = localize_with_rewrites(reference, candidate, batch, ref_trace,
-                                     thr)
+        idle = [getattr(tr, f) for tr in (ref_trace, cand_trace)
+                for f in SECTION_FIELDS
+                if tr is cand_trace or f != "activations"]
+        with _on_host(idle):
+            loc = localize_with_rewrites(reference, candidate, batch,
+                                         ref_trace, thr)
         _sync()
         seconds["localize"] = time.perf_counter() - t3
     return TTraceResult(report=report, localization=loc, thresholds=thr,

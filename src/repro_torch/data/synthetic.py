@@ -36,6 +36,15 @@ def make_batch(cfg: ArchConfig, batch: int, seq: int, *, seed: int = 0,
     return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
 
 
+def make_decode_inputs(cfg: ArchConfig, batch: int, *, seed: int = 0,
+                       step: int = 0, device="cuda") -> dict:
+    """One decode step's ``tokens`` (B, 1), uniform over the vocabulary."""
+    dev = resolve_device(device)
+    gen = torch.Generator().manual_seed((1000 + seed) * 1_000_003 + step)
+    toks = torch.randint(0, cfg.vocab, (batch, 1), generator=gen)
+    return {"tokens": toks.to(dev)}
+
+
 class DataLoader:
     """Iterator facade over the stateless generator (launcher-facing).
     ``shape`` has ``global_batch`` and ``seq_len``."""

@@ -1,11 +1,18 @@
-"""GQA attention (full / sliding-window / bidirectional): the port of the
-dense part of ``repro/models/attention.py``.
+"""Attention: GQA (full / sliding-window / bidirectional) and Multi-head
+Latent Attention, with their one-token decode steps; the port of
+``repro/models/attention.py``.
 
 ``attention`` routes as the reference does: with ``use_kernel`` to the
 flash-attention kernel (``kernels.ops.flash_attention``), else above
 S = 2048 to ``attention_blockwise`` (online softmax over 512 x 512 blocks,
 each kv step recomputed in the backward), else to ``attention_ref``, which
-materializes the scores.
+materializes the scores.  MLA runs in plain ``attention`` and its decode
+in ``einsum``, as in the reference: no kernel.
+
+A decode step writes the new token's slot into its cache tensors in place
+(``cache[:, pos]``, or ``pos % window`` in a sliding-window ring) and
+returns the same dict; the reference's ``dynamic_update_slice`` returns a
+new array.
 """
 from __future__ import annotations
 
@@ -16,7 +23,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.tap import ensure_ctx
-from repro_torch.models.layers import Linear, apply_rope
+from repro_torch.models.layers import Linear, apply_rope, rmsnorm
 
 NEG_INF = -1e30
 
@@ -151,3 +158,210 @@ class GQAttention(nn.Module):
                       use_kernel=use_kernel)
         o = ctx.tap("core_attn_out", o.reshape(B, S, -1))
         return ctx.tap("output", self.linear_proj(o))
+
+    # ---- decode (one token, KV cache) --------------------------------------
+
+    def decode(self, x, cache, pos: int):
+        """``gqa_decode``.  x: (B,1,d_model); ``pos``: the position of the
+        new token.  SWA caches are ring buffers of ``window`` slots; softmax
+        is invariant to the slot order once positions are in the roped
+        keys."""
+        cfg = self.cfg
+        B = x.shape[0]
+        positions = torch.full((B, 1), pos, dtype=torch.long, device=x.device)
+        q, k_new, v_new = self._qkv(x, positions)
+        k, v = cache["k"], cache["v"]
+        Lc = k.shape[1]
+        swa = cfg.attn == "swa"
+        if not swa and pos >= Lc:
+            raise ValueError(f"position {pos} is past the cache's {Lc} slots")
+        slot = pos % Lc
+        k[:, slot] = k_new[:, 0].to(k.dtype)
+        v[:, slot] = v_new[:, 0].to(v.dtype)
+        idx = torch.arange(Lc, device=x.device)
+        valid = (idx <= slot) | (pos >= Lc) if swa else idx <= pos
+        H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+        qg = q.reshape(B, 1, Hkv, H // Hkv, D)
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float()) / math.sqrt(D)
+        s = s.masked_fill(~valid, NEG_INF)
+        o = torch.einsum("bhgqk,bkhd->bqhgd", torch.softmax(s, dim=-1),
+                         v.float())
+        o = o.reshape(B, 1, H * D).to(x.dtype)
+        return self.linear_proj(o), cache
+
+
+def gqa_init_cache(cfg, batch, seq_len, dtype, device):
+    """K and V caches, (B, L, Hkv, D); L is ``window`` for a sliding-window
+    arch with ``seq_len`` past it (a ring buffer)."""
+    L = seq_len if cfg.attn != "swa" else min(seq_len, cfg.window)
+    shape = (batch, L, cfg.n_kv_heads, cfg.d_head)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+# ---------------------------------------------------------------------------
+# Multi-head Latent Attention (DeepSeek-V2)
+# ---------------------------------------------------------------------------
+
+MLA_DECODE_IMPLS = ("absorbed", "naive")
+
+
+class MLAttention(nn.Module):
+    """``mla_init`` / ``_mla_q`` / ``_mla_ckv`` / ``mla_forward`` and the two
+    decode implementations.  Parameter names are the reference's:
+    ``linear_dq``, ``q_lora_norm`` and ``linear_uq`` (or ``linear_q`` when
+    ``q_lora_rank`` is 0), ``linear_dkv``, ``kv_lora_norm``,
+    ``linear_krope``, ``linear_uk``, ``linear_uv``, ``linear_proj``."""
+
+    def __init__(self, gen, cfg, dtype, out_scale=None):
+        super().__init__()
+        m, H, d = cfg.mla, cfg.n_heads, cfg.d_model
+        self.cfg = cfg
+        dq = m.qk_nope_dim + m.qk_rope_dim
+        if m.q_lora_rank:
+            self.linear_dq = Linear(gen, d, m.q_lora_rank, dtype)
+            self.q_lora_norm = nn.Parameter(torch.ones(m.q_lora_rank,
+                                                       dtype=dtype))
+            self.linear_uq = Linear(gen, m.q_lora_rank, H * dq, dtype)
+        else:
+            self.linear_q = Linear(gen, d, H * dq, dtype)
+        self.linear_dkv = Linear(gen, d, m.kv_lora_rank, dtype)
+        self.kv_lora_norm = nn.Parameter(torch.ones(m.kv_lora_rank,
+                                                    dtype=dtype))
+        self.linear_krope = Linear(gen, d, m.qk_rope_dim, dtype)
+        self.linear_uk = Linear(gen, m.kv_lora_rank, H * m.qk_nope_dim, dtype)
+        self.linear_uv = Linear(gen, m.kv_lora_rank, H * m.v_head_dim, dtype)
+        self.linear_proj = Linear(gen, H * m.v_head_dim, d, dtype,
+                                  scale=out_scale)
+
+    def _q(self, x, positions):
+        """(q_nope, roped q_rope), (B,S,H,nope) and (B,S,H,rope)."""
+        m, H = self.cfg.mla, self.cfg.n_heads
+        B, S, _ = x.shape
+        if m.q_lora_rank:
+            q = self.linear_uq(rmsnorm(self.q_lora_norm, self.linear_dq(x)))
+        else:
+            q = self.linear_q(x)
+        q = q.reshape(B, S, H, m.qk_nope_dim + m.qk_rope_dim)
+        q_nope, q_rope = torch.split(q, [m.qk_nope_dim, m.qk_rope_dim], dim=-1)
+        return q_nope, apply_rope(q_rope, positions, self.cfg.rope_theta)
+
+    def _ckv(self, x, positions):
+        """(normed latent (B,S,kv_lora), roped shared key (B,S,rope))."""
+        ckv = rmsnorm(self.kv_lora_norm, self.linear_dkv(x))
+        k_rope = apply_rope(self.linear_krope(x), positions,
+                            self.cfg.rope_theta)
+        return ckv, k_rope
+
+    def _heads(self, ckv, k_rope, q_nope, q_rope):
+        """Per-head q (B,Q,H,nope+rope), k (B,S,H,nope+rope) and v
+        (B,S,H,v) materialized from the latent."""
+        m, H = self.cfg.mla, self.cfg.n_heads
+        B, S, _ = ckv.shape
+        k_nope = self.linear_uk(ckv).reshape(B, S, H, m.qk_nope_dim)
+        v = self.linear_uv(ckv).reshape(B, S, H, m.v_head_dim)
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+            B, S, H, m.qk_rope_dim)], dim=-1)
+        return q, k, v
+
+    def forward(self, x, positions=None, ctx=None, use_kernel=False):
+        """``mla_forward``, the training / prefill path: per-head K/V
+        materialized from the latent, attention in ``attention``."""
+        if use_kernel:
+            raise ValueError("MLA has no flash-kernel path (the reference's "
+                             "mla_forward takes no use_kernel)")
+        ctx = ensure_ctx(ctx)
+        x = ctx.tap("input", x)
+        B, S, _ = x.shape
+        if positions is None:
+            positions = torch.arange(S, device=x.device).expand(B, S)
+        q_nope, q_rope = self._q(x, positions)
+        q, k, v = self._heads(*self._ckv(x, positions), q_nope, q_rope)
+        o = attention(q, k, v, mode="causal")
+        o = ctx.tap("core_attn_out", o.reshape(B, S, -1))
+        return ctx.tap("output", self.linear_proj(o))
+
+    # ---- decode (one token, latent cache) ----------------------------------
+
+    def _write(self, x, cache, pos, positions):
+        ckv_new, krope_new = self._ckv(x, positions)
+        ckv, krope = cache["ckv"], cache["krope"]
+        if pos >= ckv.shape[1]:
+            raise ValueError(f"position {pos} is past the cache's "
+                             f"{ckv.shape[1]} slots")
+        ckv[:, pos] = ckv_new[:, 0].to(ckv.dtype)
+        krope[:, pos] = krope_new[:, 0].to(krope.dtype)
+        return ckv, krope
+
+    def decode(self, x, cache, pos: int, impl="absorbed", bugs=frozenset()):
+        """One token: ``mla_decode_absorbed`` (the production path,
+        ``impl="absorbed"``) or ``mla_decode_naive`` (``impl="naive"``, the
+        independent inference-TTrace reference).  ``bugs`` may hold
+        ``decode_stale_rope_pos`` (absorbed only): the query rope uses
+        position ``max(pos - 1, 0)``; the key rope stays right."""
+        if impl not in MLA_DECODE_IMPLS:
+            raise ValueError(f"unknown MLA decode impl {impl!r}")
+        if impl == "naive":
+            if bugs:
+                raise ValueError(f"the naive MLA decode takes no bugs "
+                                 f"(got {sorted(bugs)})")
+            return self.decode_naive(x, cache, pos)
+        return self.decode_absorbed(x, cache, pos, bugs=bugs)
+
+    def decode_naive(self, x, cache, pos: int):
+        """Materializes per-head K/V from the whole latent cache and runs
+        standard attention over it."""
+        m, H = self.cfg.mla, self.cfg.n_heads
+        B = x.shape[0]
+        positions = torch.full((B, 1), pos, dtype=torch.long, device=x.device)
+        q_nope, q_rope = self._q(x, positions)
+        ckv, krope = self._write(x, cache, pos, positions)
+        S = ckv.shape[1]
+        q, k, v = self._heads(ckv, krope, q_nope, q_rope)
+        s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / math.sqrt(
+            m.qk_nope_dim + m.qk_rope_dim)
+        s = s.masked_fill(~(torch.arange(S, device=x.device) <= pos), NEG_INF)
+        o = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1),
+                         v.float())
+        o = o.reshape(B, 1, H * m.v_head_dim).to(x.dtype)
+        return self.linear_proj(o), cache
+
+    def decode_absorbed(self, x, cache, pos: int, bugs=frozenset()):
+        """Attention in the kv_lora latent space: ``linear_uk`` is absorbed
+        into the query and ``linear_uv`` applied after, so the cache holds
+        only (kv_lora + rope) values a token.  ``linear_uk.w`` is
+        (kv_lora, H * nope) like the reference's, so its (kv_lora, H, nope)
+        view keeps the heads in order."""
+        m, H = self.cfg.mla, self.cfg.n_heads
+        r = m.kv_lora_rank
+        B = x.shape[0]
+        positions = torch.full((B, 1), pos, dtype=torch.long, device=x.device)
+        qpos = (torch.clamp(positions - 1, min=0)
+                if "decode_stale_rope_pos" in bugs else positions)
+        q_nope, q_rope = self._q(x, qpos)                      # (B,1,H,*)
+        ckv, krope = self._write(x, cache, pos, positions)
+        S = ckv.shape[1]
+        wuk = self.linear_uk.w.reshape(r, H, m.qk_nope_dim)
+        # absorb W_uk into q: q_lat[b,h,r] = sum_d q_nope[b,h,d] wuk[r,h,d]
+        q_lat = torch.einsum("bqhd,rhd->bqhr", q_nope.float(), wuk.float())
+        s = (torch.einsum("bqhr,bkr->bhqk", q_lat, ckv.float())
+             + torch.einsum("bqhd,bkd->bhqk", q_rope.float(), krope.float()))
+        s = s / math.sqrt(m.qk_nope_dim + m.qk_rope_dim)
+        s = s.masked_fill(~(torch.arange(S, device=x.device) <= pos), NEG_INF)
+        ctx_lat = torch.einsum("bhqk,bkr->bqhr", torch.softmax(s, dim=-1),
+                               ckv.float())
+        wuv = self.linear_uv.w.reshape(r, H, m.v_head_dim)
+        o = torch.einsum("bqhr,rhd->bqhd", ctx_lat, wuv.float())
+        o = o.reshape(B, 1, H * m.v_head_dim).to(x.dtype)
+        return self.linear_proj(o), cache
+
+
+def mla_init_cache(cfg, batch, seq_len, dtype, device):
+    """The latent cache: ``ckv`` (B, L, kv_lora) and ``krope`` (B, L,
+    rope), kv_lora + rope values a token instead of H * (nope + v)."""
+    m = cfg.mla
+    return {"ckv": torch.zeros((batch, seq_len, m.kv_lora_rank), dtype=dtype,
+                               device=device),
+            "krope": torch.zeros((batch, seq_len, m.qk_rope_dim), dtype=dtype,
+                                 device=device)}

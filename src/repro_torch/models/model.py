@@ -1,5 +1,5 @@
-"""Model assembly: the dense-decoder, MoE and RWKV-6 port of
-``repro/models/model.py``.
+"""Model assembly: the dense-decoder, MoE (GQA or MLA attention) and
+RWKV-6 port of ``repro/models/model.py``.
 
 ``named_parameters()`` gives exactly the reference's
 ``collector.flatten_named(params)`` names (``embedding.word_embeddings``,
@@ -7,6 +7,11 @@
 ``layers.{i}.time_mix.mix_A``, ...), and the forward taps the reference's
 names in the reference's order.  Sharding constraints have no counterpart
 on one card.
+
+Decode (``init_cache`` / ``decode_step``): caches are per-layer lists under
+each segment's name (``{"layers": [cache of layer 0, ...]}``), the
+reference's layout at ``scan_layers=False``; its stacked ``scan_layers``
+caches have no counterpart, as the port's parameters are per layer too.
 """
 from __future__ import annotations
 
@@ -20,12 +25,14 @@ from torch import nn
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.tap import ensure_ctx
-from repro_torch.models.attention import GQAttention
+from repro_torch.models.attention import (GQAttention, MLAttention,
+                                          gqa_init_cache, mla_init_cache)
 from repro_torch.models.layers import (SwiGLUMLP, _logits,
                                        chunked_cross_entropy, cross_entropy,
                                        rmsnorm)
 from repro_torch.models.moe import MoE
-from repro_torch.models.ssm import RWKV6ChannelMix, RWKV6TimeMix
+from repro_torch.models.ssm import (RWKV6ChannelMix, RWKV6TimeMix,
+                                    rwkv6_init_state)
 
 # the reference switches to chunked_cross_entropy above S * V = 2^26
 _CHUNKED_CE_ELEMS = 1 << 26
@@ -41,7 +48,8 @@ class Segment:
 
 def build_plan(cfg: ArchConfig) -> list[Segment]:
     L = cfg.n_layers
-    if cfg.arch_type in ("dense", "moe") and cfg.attn not in ("full", "swa"):
+    if cfg.arch_type in ("dense", "moe") and cfg.attn not in ("full", "swa",
+                                                              "mla"):
         raise NotImplementedError(
             f"{cfg.name}: attention {cfg.attn!r} is not ported yet")
     if cfg.arch_type == "dense":
@@ -54,10 +62,10 @@ def build_plan(cfg: ArchConfig) -> list[Segment]:
         return segs
     if cfg.arch_type == "ssm":
         return [Segment("layers", "rwkv", L, 0)]
-    # hybrid / MLA and the frontends are later slices
+    # hybrid and the frontends are later slices
     raise NotImplementedError(
-        f"{cfg.name}: only dense and MoE GQA decoders and RWKV-6 are "
-        f"ported so far")
+        f"{cfg.name}: only dense and MoE decoders and RWKV-6 are ported "
+        f"so far")
 
 
 def _out_scale(cfg):  # megatron-style scaled residual-output init
@@ -67,16 +75,19 @@ def _out_scale(cfg):  # megatron-style scaled residual-output init
 class Block(nn.Module):
     """``block_init`` / ``block_apply`` for the attention kinds:
     ``attn_mlp``, ``attn_dense_mlp`` (an MoE arch's leading dense layers,
-    of width ``d_ff_dense``) and ``attn_moe``.  ``forward`` gives ``(x,
-    aux)``; ``aux`` is the MoE load-balance loss, ``None`` for a dense
-    MLP."""
+    of width ``d_ff_dense``) and ``attn_moe``, with GQA or (``attn ==
+    "mla"``) MLA attention.  ``forward`` gives ``(x, aux)``; ``aux`` is the
+    MoE load-balance loss, ``None`` for a dense MLP.  ``step`` is the
+    one-token decode."""
 
     def __init__(self, gen, cfg: ArchConfig, dtype, kind="attn_mlp"):
         super().__init__()
         osc = _out_scale(cfg)
         self.input_norm = nn.Parameter(torch.ones(cfg.d_model, dtype=dtype))
         self.post_attn_norm = nn.Parameter(torch.ones(cfg.d_model, dtype=dtype))
-        self.self_attention = GQAttention(gen, cfg, dtype, osc)
+        self.mla = cfg.attn == "mla"
+        attn = MLAttention if self.mla else GQAttention
+        self.self_attention = attn(gen, cfg, dtype, osc)
         self.moe = kind == "attn_moe"
         if self.moe:
             self.mlp = MoE(gen, cfg, dtype, osc)
@@ -85,10 +96,13 @@ class Block(nn.Module):
                     else cfg.d_ff)
             self.mlp = SwiGLUMLP(gen, cfg.d_model, d_ff, dtype, osc)
 
-    def forward(self, x, ctx, use_kernel=False, precision=None):
+    def _run(self, x, ctx, attend, precision=None):
+        """(x, aux, cache): ``attend(h)`` gives the attention's (output,
+        cache)."""
         h = rmsnorm(self.input_norm, x)
         with ctx.scope("self_attention"):
-            x = x + self.self_attention(h, ctx=ctx, use_kernel=use_kernel)
+            a, cache = attend(h)
+        x = x + a
         h = rmsnorm(self.post_attn_norm, x)
         aux = None
         with ctx.scope("mlp"):
@@ -96,7 +110,27 @@ class Block(nn.Module):
                 mo, aux = self.mlp(h, ctx=ctx)
             else:
                 mo = self.mlp(h, ctx=ctx, precision=precision)
-        return x + mo, aux
+        return x + mo, aux, cache
+
+    def forward(self, x, ctx, use_kernel=False, precision=None):
+        x, aux, _ = self._run(x, ctx, lambda h: (self.self_attention(
+            h, ctx=ctx, use_kernel=use_kernel), None), precision)
+        return x, aux
+
+    def step(self, x, cache, pos, ctx, mla_impl="absorbed",
+             mla_bugs=frozenset()):
+        """One decode token: ``(x, cache)``.  ``mla_impl`` / ``mla_bugs``
+        choose the MLA decode (``MLAttention.decode``); a GQA block takes
+        neither."""
+        kw = dict(impl=mla_impl, bugs=mla_bugs) if self.mla else {}
+        x, _, cache = self._run(x, ctx, lambda h: self.self_attention.decode(
+            h, cache, pos, **kw))
+        return x, cache
+
+    def init_cache(self, batch, seq_len, dtype):
+        init = mla_init_cache if self.mla else gqa_init_cache
+        return init(self.self_attention.cfg, batch, seq_len, dtype,
+                    self.input_norm.device)
 
 
 class RWKVBlock(nn.Module):
@@ -114,13 +148,28 @@ class RWKVBlock(nn.Module):
         self.post_tm_norm = nn.Parameter(torch.ones(cfg.d_model, dtype=dtype))
 
     def forward(self, x, ctx, use_kernel=False, precision=None):
+        return self.step(x, None, None, ctx)[0], None
+
+    def step(self, x, state, pos, ctx, mla_impl="absorbed",
+             mla_bugs=frozenset()):
+        """``(x, new state)`` from ``state`` (None: zeros).  One decode
+        token or a whole sequence; the position is in the state, so
+        ``pos`` is unused, and so are the MLA options (``Model.decode_step``
+        refuses them on a non-MLA arch)."""
+        st = state or {"time_mix": None, "channel_mix": None}
         h = rmsnorm(self.input_norm, x)
         with ctx.scope("time_mix"):
-            x = x + self.time_mix(h, ctx=ctx)[0]
+            tm, new_tm = self.time_mix(h, ctx=ctx, state=st["time_mix"])
+        x = x + tm
         h = rmsnorm(self.post_tm_norm, x)
         with ctx.scope("channel_mix"):
-            x = x + self.channel_mix(h, ctx=ctx)[0]
-        return x, None
+            cm, new_cm = self.channel_mix(h, ctx=ctx,
+                                          state=st["channel_mix"])
+        return x + cm, {"time_mix": new_tm, "channel_mix": new_cm}
+
+    def init_cache(self, batch, seq_len, dtype):
+        return rwkv6_init_state(self.time_mix.cfg, batch, dtype,
+                                self.input_norm.device)
 
 
 def make_block(gen, cfg: ArchConfig, kind: str, dtype) -> nn.Module:
@@ -197,6 +246,12 @@ class Model(nn.Module):
         h = rmsnorm(self.final_norm, h)
         return ctx.tap("final_norm_out", h), aux_total
 
+    def unembed(self, h):
+        """Logits (..., vocab) in ``h``'s dtype."""
+        e = (self.embedding.word_embeddings if self.cfg.tie_embeddings
+             else self.lm_head)
+        return _logits(h, e)
+
     def forward(self, batch, ctx=None, use_kernel=False, precision=None):
         """``use_kernel`` runs attention on the flash-attention kernel;
         ``precision`` (an optional ``precision.fp8.Precision``) routes the
@@ -223,3 +278,39 @@ class Model(nn.Module):
         else:
             ce = cross_entropy(_logits(h, e), labels, mask=mask)
         return ce + aux, {"ce": ce, "aux": aux}
+
+    # ---- decode ---------------------------------------------------------------
+
+    def init_cache(self, batch, seq_len):
+        """``{segment name: [each layer's cache]}`` on the model's device,
+        in the compute dtype (the RWKV scan state is f32).  A cache holds
+        ``seq_len`` positions (a sliding-window arch's at most ``window``,
+        as a ring)."""
+        return {seg.name: [blk.init_cache(batch, seq_len, self.cdtype)
+                           for blk in getattr(self, seg.name)]
+                for seg in self.plan}
+
+    @torch.no_grad()
+    def decode_step(self, caches, tokens, pos: int, ctx=None,
+                    mla_impl="absorbed", mla_bugs=frozenset()):
+        """tokens: (B,1) int; ``pos``: their position.  Returns ``(logits
+        (B,1,vocab), caches)``; attention caches are written in place.
+        ``mla_impl`` / ``mla_bugs`` reach an MLA arch's attention
+        (``MLAttention.decode``), the reference's ``MLA_DECODE_IMPL`` /
+        ``MLA_DECODE_BUGS``; another arch refuses them."""
+        if self.cfg.attn != "mla" and (mla_impl != "absorbed" or mla_bugs):
+            raise ValueError(f"mla_impl={mla_impl!r} / mla_bugs="
+                             f"{sorted(mla_bugs)} need attn 'mla', not "
+                             f"{self.cfg.attn!r}")
+        ctx = ensure_ctx(ctx)
+        h = self.embed({"tokens": tokens}, ctx)
+        new = {}
+        for seg in self.plan:
+            new[seg.name] = []
+            for j, block in enumerate(getattr(self, seg.name)):
+                with ctx.scope(f"layers.{seg.layer0 + j}"):
+                    h, c = block.step(h, caches[seg.name][j], pos, ctx,
+                                      mla_impl=mla_impl, mla_bugs=mla_bugs)
+                new[seg.name].append(c)
+        h = ctx.tap("final_norm_out", rmsnorm(self.final_norm, h))
+        return self.unembed(h), new

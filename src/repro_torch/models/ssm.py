@@ -17,7 +17,9 @@ recurrence over a per-head state S in R^{dk x dv}:
 ``chunk_scan`` is that chunked math on its own (no bonus, no cast), shared
 with the kernel's plain version.  The intra-chunk products of every chunk
 are taken at once; only the (dk, dv) state walks the chunks in a loop.
-The Mamba2 mixer and the decode-state helpers are not ported yet.
+``rwkv6_init_state`` gives the decode state the time and channel mixes
+continue from (``state=``).  The Mamba2 mixer and its state are not ported
+yet.
 """
 from __future__ import annotations
 
@@ -266,3 +268,17 @@ class RWKV6ChannelMix(nn.Module):
         out = torch.sigmoid(self.recept(xr).float()).to(x.dtype) * kv
         out = ctx.tap("output", out)
         return out, {"shift": x[:, -1:]}
+
+
+def rwkv6_init_state(cfg: ArchConfig, batch, dtype, device):
+    """Zero decode state of one RWKV-6 block: each mix's trailing token
+    (B,1,d) in ``dtype`` and the time mix's scan state (B,H,dh,dh) in f32."""
+    H, dh, d = cfg.n_heads, cfg.ssm.d_head, cfg.d_model
+    return {
+        "time_mix": {"shift": torch.zeros((batch, 1, d), dtype=dtype,
+                                          device=device),
+                     "ssm": torch.zeros((batch, H, dh, dh),
+                                        dtype=torch.float32, device=device)},
+        "channel_mix": {"shift": torch.zeros((batch, 1, d), dtype=dtype,
+                                             device=device)},
+    }

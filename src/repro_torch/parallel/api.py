@@ -388,6 +388,10 @@ class _Plumbing:
     the (un)sharding with the zigzag (un)permute."""
 
     def __init__(self, cfg, pcfg: ParallelConfig, device):
+        if cfg.attn == "mla":
+            # the reference's distributed block is tp_gqa_attention only
+            raise ValueError(f"{cfg.name}: the distributed candidate has no "
+                             f"MLA attention (GQA only, as the reference's)")
         self.cfg, self.pcfg = cfg, pcfg
         self.mesh = make_mesh(pcfg, device)
         self.ann = build_annotations(cfg, pcfg)
