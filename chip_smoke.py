@@ -109,9 +109,11 @@ prints no result line):
              absolute; rwkv6-7b's time-mix shape (2 x 4096, 64 heads of 64,
              chunk 128, per-channel exclusive) and zamba2-7b's mixer shape
              (112 heads, scalar inclusive), bf16 q/k/v and f32 log_w,
-             within 1e-5 normwise, as is a 60-wide shape that takes the
-             kernel's scalar staging; two launches bit-identical;
-             out-of-contract shapes and operands raise;
+             within 1e-5 normwise, as are a 60-wide shape that takes the
+             kernel's scalar staging and the zamba2 check's own operands
+             (1 x 4096, q and k broadcast over 112 heads, head stride 0);
+             two launches bit-identical; out-of-contract shapes and
+             operands raise;
 17. ssm_main — ``ttrace_check`` of full-width rwkv6-7b cut to 2 layers at
              B 2 x S 4096 under bf16 thresholds: the reference is the plain
              model, the candidate the same model with ``models.ssm.lin_attn``
@@ -125,7 +127,7 @@ prints no result line):
              thresholds only that weight's gradients and update may flag,
              and the checker then names its linear, ``.key``;
 19. ssm_timing — the kernel per launch at the rwkv6 and zamba2 shapes
-             (CUDA events, the card held busy, without deterministic
+             and on the zamba2 check's broadcast operands (CUDA events, the card held busy, without deterministic
              mode's fill of new buffers; with it, and back to back,
              beside), its plain version and the bound (no single PyTorch
              call computes it); the kernel's share of the bound, its
@@ -259,10 +261,36 @@ prints no result line):
              sliding-window ring, MoE at decode) and ``rwkv6-7b`` (the
              state continuation) must each exit 0 and print its tokens per
              second.
+24a. zamba_main (24a-24d run last, with every earlier model freed) —
+             ``zamba2-7b`` at its published width (d 3584, Mamba2 with d_state
+             64, heads of 64, expand 2, chunk 128; the shared block's 32
+             heads of 112, d_ff 14336; vocab 32000, untied, bf16) cut from
+             81 to 12 layers for memory (two groups of 6 Mamba2 layers, the
+             shared block used after each: the least depth with two uses),
+             B 1 x S 4096, seed 0, bf16 thresholds: first one traced
+             reference step alone (its seconds, peak memory and section
+             sizes), then the clean check of the plain model against the
+             gla_scan candidate (every Mamba2 scan on the kernel's scalar,
+             inclusive branch, q and k of head stride 0) must PASS with 12
+             launches per candidate run and none in the reference, 5 + 1
+             rel-err launches, the shared block's taps once per use and its
+             parameters once, all finite; prints each step's seconds, the
+             largest rel-err over threshold and the peak memory;
+24b. zamba_control_mamba — ``mamba1.0.mixer.out_proj.w`` doubled in the
+             candidate must FAIL and be localized to ``layers.6.mixer``;
+24c. zamba_control_shared — ``shared_attn.mlp.down.w`` doubled must FAIL
+             and be localized to ``shared_attn_0.mlp``, the first use;
+24d. zamba_decode, zamba_serve — the 12-layer model's decode path
+             (each Mamba2 layer's conv and scan state, each shared use's KV
+             cache) stepped over B 2 x 256 tokens at f32 compute within
+             1e-4 normwise of ``forward`` + ``unembed`` (bf16 printed
+             beside); ``python -m repro_torch.launch.serve --arch zamba2-7b
+             --reduced`` must exit 0 and print its tokens per second.
 
 Every kernel's launch count is set to 0 just before each path (phases 4,
-8, 12, 13, 14, 15a, 15b, 15c, 17, 18, 20a-20e, 21a-21d, 22a-22c and
-23a-23c) and read just after it.  At the end come the card's name and power
+8, 12, 13, 14, 15a, 15b, 15c, 17, 18, 20a-20e, 21a-21d, 22a-22c, 23a-23c
+and 24a-24c) and read just after it.  The ``kernels`` line's ``gla_scan``
+launches are phase 17's and 24a's, ``launches_by_path`` beside.  At the end come the card's name and power
 limit, then a ``{"kernels": [...]}`` JSON object, then the last line,
 ``{"ok": true, "device": {...}}``.
 """
@@ -363,6 +391,9 @@ SSM_NORM_TOL = 1e-5                # normwise relative, against float64
 # H = 2 * 3584 / 64)
 SSM_RWKV = (2, 4096, 64, 64, 64, 128, False, True)
 SSM_ZAMBA = (2, 4096, 112, 64, 64, 128, True, False)
+# the zamba2 check's own operands (24a): B 1, q and k broadcast over the
+# heads with head stride 0
+SSM_ZAMBA_PATH = (1, 4096, 112, 64, 64, 128, True, False)
 # rows of 60 bf16 are not whole 16-byte pieces: the kernel's scalar staging
 SSM_UNALIGNED = (1, 512, 4, 60, 60, 128, False, True)
 # the reference tests' sweep (tests/test_kernels.py), B 2 x S 128, 2 heads
@@ -404,6 +435,19 @@ CONSISTENCY = ("tinyllama-1.1b", 2, 256)    # arch, B, T of phase 23d
 CONSISTENCY_TOL = 1e-4       # normwise relative, at f32 compute
 SERVE_RUNS = (("tinyllama-1.1b", False), ("deepseek-v2-236b", True),
               ("mixtral-8x7b", True), ("rwkv6-7b", True))
+ZAMBA_ARCH = "zamba2-7b"
+ZAMBA_LAYERS = 12            # two groups of 6 Mamba2 layers, two shared uses
+ZAMBA_BATCH = (1, 4096)
+ZAMBA_LAUNCHES_PER_RUN = ZAMBA_LAYERS    # one gla_scan per Mamba2 layer
+MAMBA_TAPS_PER_LAYER = 2     # mixer input, output
+MAMBA_PARAMS_PER_LAYER = 9   # input norm, in/out proj, conv w/b, A_log, D,
+                             # dt_bias, gate norm
+SHARED_TAPS = 5              # a use of the shared block: attention
+                             # input/core/output, mlp input/output
+SHARED_PARAMS = 7            # 2 norms, qkv, proj, 3 SwiGLU
+ZAMBA_CONTROLS = (("mamba1.0.mixer.out_proj.w", "layers.6.mixer"),
+                  ("shared_attn.mlp.down.w", "shared_attn_0.mlp"))
+ZAMBA_DECODE = (2, 256)      # B x T of phase 24d, at f32 compute
 MOE_WATCH = ("layers.0.mlp/output", "layers.0.mlp/router_logits",
              "layers.0.mlp.router", "layers.0.mlp.experts.down")
 
@@ -608,9 +652,15 @@ def model_check(model, batch, eps):
 
 def check_trace_shapes(res, cfg, batch_size, seq, taps_per_layer=5,
                        params_per_layer=7):
+    """Tensors per section, ``final_norm_out``'s shape, every leaf finite.
+    A hybrid's shared block counts its taps once per use and its
+    parameters once (``*_per_layer`` are then the Mamba2 layers')."""
+    from repro_torch.models.model import build_plan
     L, d = cfg.n_layers, cfg.d_model
-    n_params = 2 + params_per_layer * L + (0 if cfg.tie_embeddings else 1)
-    n_taps = taps_per_layer * L + 2
+    uses = sum(seg.shared for seg in build_plan(cfg))
+    n_params = (2 + params_per_layer * L + (0 if cfg.tie_embeddings else 1)
+                + (SHARED_PARAMS if uses else 0))
+    n_taps = taps_per_layer * L + 2 + SHARED_TAPS * uses
     want = {"activations": n_taps, "act_grads": n_taps,
             "param_grads": n_params, "main_grads": n_params,
             "params_post": n_params}
@@ -2103,12 +2153,14 @@ def pp_phases(full, cfg, device, root, phase):
 # phases 16-19: the rwkv6-7b check whose time mix runs on the gla_scan kernel
 # ---------------------------------------------------------------------------
 
-def ssm_inputs(shape, dtype, device, seed):
+def ssm_inputs(shape, dtype, device, seed, broadcast=False):
     """q, k, v in ``dtype`` and f32 log_w for one ``gla_scan`` shape.  The
     sweep draws its decays as ``test_kernels.py`` does; rwkv6-7b's come
     from the model's own formula, -exp(w0 + tanh(x A) B) with its init
     (w0 = -6, A and B at 0.02); zamba2's are -softplus(normal), the
-    reference test's scalar draw."""
+    reference test's scalar draw.  ``broadcast``: q and k are one head's
+    values expanded over the heads (head stride 0), as the Mamba2 mixer
+    hands them over."""
     import torch
     import torch.nn.functional as F
     B, S, H, dk, dv, _, scalar, _ = shape
@@ -2116,7 +2168,9 @@ def ssm_inputs(shape, dtype, device, seed):
 
     def randn(*size):
         return torch.randn(size, generator=gen).to(device)
-    q, k, v = (randn(B, S, H, d).to(dtype) for d in (dk, dk, dv))
+    Hqk = 1 if broadcast else H
+    q, k, v = (randn(B, S, h, d).to(dtype).expand(B, S, H, d)
+               for h, d in ((Hqk, dk), (Hqk, dk), (H, dv)))
     if scalar:
         lw = -F.softplus(randn(B, S, H, 1))
     elif shape == SSM_RWKV:
@@ -2136,20 +2190,27 @@ def normwise(got, ref):
 def check_ssm_kernel(device):
     """``gla_scan`` against its plain version in float64 on the same inputs:
     the reference tests' sweep in f32 within SSM_SWEEP_TOL absolute, the
-    rwkv6 and zamba2 full-width shapes and SSM_UNALIGNED (bf16 q, k, v)
-    within SSM_NORM_TOL normwise; two launches bit-identical;
+    rwkv6 and zamba2 full-width shapes, SSM_UNALIGNED and the zamba2
+    check's own operands (SSM_ZAMBA_PATH, q and k of head stride 0) (bf16
+    q, k, v) within SSM_NORM_TOL normwise; two launches bit-identical;
     out-of-contract shapes and operands raise.  Returns the largest
     |kernel - plain (f32)|."""
     import torch
     from repro_torch.kernels import ssm_scan as K
 
     worst = 0.0
-    cases = ([(shape, torch.float32) for shape in SSM_SWEEP]
-             + [(SSM_RWKV, torch.bfloat16), (SSM_ZAMBA, torch.bfloat16),
-                (SSM_UNALIGNED, torch.bfloat16)])
-    for i, (shape, dtype) in enumerate(cases):
+    cases = ([(shape, torch.float32, False) for shape in SSM_SWEEP]
+             + [(SSM_RWKV, torch.bfloat16, False),
+                (SSM_ZAMBA, torch.bfloat16, False),
+                (SSM_UNALIGNED, torch.bfloat16, False),
+                (SSM_ZAMBA_PATH, torch.bfloat16, True)])
+    for i, (shape, dtype, bcast) in enumerate(cases):
         chunk, excl = shape[5], shape[7]
-        q, k, v, lw = ssm_inputs(shape, dtype, device, seed=200 + i)
+        q, k, v, lw = ssm_inputs(shape, dtype, device, seed=200 + i,
+                                 broadcast=bcast)
+        if bcast and not (q.stride(2) == k.stride(2) == 0
+                          and K.staging_vec(q, k, v, lw)):
+            raise AssertionError(f"broadcast operands: strides {q.stride()}")
         y1, s1 = K.gla_scan(q, k, v, lw, chunk=chunk, exclusive=excl)
         y2, s2 = K.gla_scan(q, k, v, lw, chunk=chunk, exclusive=excl)
         yp, sp = K.gla_scan_ref(q, k, v, lw, chunk=chunk, exclusive=excl)
@@ -2157,7 +2218,8 @@ def check_ssm_kernel(device):
                                   lw.double(), chunk=chunk, exclusive=excl)
         torch.cuda.synchronize(device)
         what = (f"gla_scan {shape[:6]} {'scalar' if shape[6] else 'channel'}"
-                f"{' exclusive' if excl else ''} {str(dtype)[6:]}")
+                f"{' exclusive' if excl else ''} {str(dtype)[6:]}"
+                f"{' q/k head stride 0' if bcast else ''}")
         if y1.dtype != torch.float32 or tuple(y1.shape) != tuple(yp.shape) \
                 or tuple(s1.shape) != tuple(sp.shape):
             raise AssertionError(f"{what}: got {y1.dtype} {tuple(y1.shape)} "
@@ -2213,26 +2275,32 @@ def check_ssm_kernel(device):
     return worst
 
 
+def gla_lin_attn(q, k, v, log_w, chunk=128, u=None, s0=None, chunked=True):
+    """``models.ssm.lin_attn`` on ``kernels.ops.gla_scan``: ``u`` given is
+    rwkv6's per-channel exclusive scan with its bonus, ``u=None`` Mamba2's
+    scalar inclusive one.  The kernel starts from a zero state, so a call
+    with ``s0`` (a decode) or the recurrent form raises."""
+    from repro_torch.kernels import ops
+    if s0 is not None or not chunked:
+        raise ValueError("the gla_scan candidate runs the chunked scan from "
+                         "a zero state")
+    return ops.gla_scan(q, k, v, log_w, chunk=chunk, exclusive=u is not None,
+                        u=u)
+
+
 def gla_runner(model, opt):
     """The gla_scan candidate as a user builds it: the reference model with
     its chunked scan replaced by the kernel.  ``models.ssm.lin_attn`` is
-    bound to ``kernels.ops.gla_scan`` for the length of the candidate's own
+    bound to ``gla_lin_attn`` for the length of the candidate's own
     forward and restored after it; the generic collector traces the step."""
     from repro_torch.core.collector import named_params, trace_fn_step
     from repro_torch.core.harness import inputs_on
-    from repro_torch.kernels import ops
     from repro_torch.models import ssm
     params = named_params(model)
 
-    def on_kernel(q, k, v, log_w, chunk=128, u=None, s0=None, chunked=True):
-        if s0 is not None or not chunked or u is None:
-            raise ValueError("the gla_scan candidate runs the rwkv6 chunked "
-                             "scan from a zero state")
-        return ops.gla_scan(q, k, v, log_w, chunk=chunk, exclusive=True, u=u)
-
     def loss_call(batch, ctx):
         plain = ssm.lin_attn
-        ssm.lin_attn = on_kernel
+        ssm.lin_attn = gla_lin_attn
         try:
             return model.loss(batch, ctx=ctx)[0]
         finally:
@@ -2336,15 +2404,17 @@ def ssm_control(model, batch):
     return loc
 
 
-def ssm_bound(shape, elem_bytes=2):
+def ssm_bound(shape, elem_bytes=2, broadcast=False):
     """(bound ms, bound_by, bytes, flops) of one scan: q, k, v and log_w
-    (f32) read once, y and the state (f32) written once; the four products
-    of each chunk counted whole (A, A v, q_t S and the state update), on
-    the bf16 tensor cores."""
+    (f32) read once (``broadcast`` q and k: one head's values), y and the
+    state (f32) written once; the four products of each chunk counted
+    whole (A, A v, q_t S and the state update), on the bf16 tensor
+    cores."""
     B, S, H, dk, dv, C, scalar, _ = shape
     dw = 1 if scalar else dk
-    nbytes = (elem_bytes * B * S * H * (2 * dk + dv) + 4 * B * S * H * dw
-              + 4 * B * S * H * dv + 4 * B * H * dk * dv)
+    Hqk = 1 if broadcast else H
+    nbytes = (elem_bytes * B * S * (2 * Hqk * dk + H * dv)
+              + 4 * B * S * H * dw + 4 * B * S * H * dv + 4 * B * H * dk * dv)
     flops = B * H * (S // C) * 2 * (C * C * dk + C * C * dv + 2 * C * dk * dv)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / BF16_FLOPS * 1e3
@@ -2403,7 +2473,8 @@ def ssm_builds():
 
 
 def ssm_timing(device):
-    """Per launch at the rwkv6 and zamba2 full-width shapes: the kernel
+    """Per launch at the rwkv6 and zamba2 full-width shapes and on the
+    zamba2 check's own operands (B 1, q and k of head stride 0): the kernel
     with the card held busy (``device_time_ms``) without deterministic
     mode's fill of new buffers and with it (as the main path runs), and
     back to back (``cuda_time_ms``); its plain version (f32); beside the
@@ -2417,8 +2488,10 @@ def ssm_timing(device):
 
     launches = K.gla_scan.launches
     rows = []
-    for shape in (SSM_RWKV, SSM_ZAMBA):
-        q, k, v, lw = ssm_inputs(shape, torch.bfloat16, device, seed=0)
+    for shape, bcast in ((SSM_RWKV, False), (SSM_ZAMBA, False),
+                         (SSM_ZAMBA_PATH, True)):
+        q, k, v, lw = ssm_inputs(shape, torch.bfloat16, device, seed=0,
+                                 broadcast=bcast)
         chunk, excl = shape[5], shape[7]
 
         def call():
@@ -2430,7 +2503,7 @@ def ssm_timing(device):
             wrapper_ms = cuda_time_ms(call)
         plain_ms = cuda_time_ms(lambda: K.gla_scan_ref(
             q, k, v, lw, chunk=chunk, exclusive=excl), reps=5, warmup=1)
-        bound_ms, bound_by, nbytes, flops = ssm_bound(shape)
+        bound_ms, bound_by, nbytes, flops = ssm_bound(shape, broadcast=bcast)
         tf32_flops, design_bytes = ssm_work(shape)
         _, _, cycles, pass_ms = K.profile(q, k, v, lw, chunk, excl)
         phases = {}
@@ -2443,7 +2516,8 @@ def ssm_timing(device):
                                        zip(names, mean) if n != "total"})
         passes = sum(pass_ms.values())
         rows.append(dict(shape=shape[:6], decay="scalar" if shape[6]
-                         else "per-channel", exclusive=excl, ms=ms,
+                         else "per-channel", exclusive=excl,
+                         qk_head_stride_0=bcast, ms=ms,
                          filled_ms=filled_ms, wrapper_ms=wrapper_ms,
                          plain_ms=plain_ms, library_ms=None,
                          bound_ms=bound_ms, bound_by=bound_by,
@@ -2458,7 +2532,8 @@ def ssm_timing(device):
                          pass_share={n: t / passes for n, t in
                                      pass_ms.items()},
                          phases=phases))
-        log(f"gla_scan {shape[:6]}: " + json.dumps(rows[-1]))
+        log(f"gla_scan {shape[:6]}{' q/k head stride 0' if bcast else ''}: "
+            + json.dumps(rows[-1]))
         del q, k, v, lw
     K.gla_scan.launches = launches        # timing launches are not counted
     return rows, ssm_builds()
@@ -3148,24 +3223,15 @@ def mla_decode(cfg, model, B, T):
     return out
 
 
-def decode_consistency(device):
-    """23d: full-width, full-depth ``CONSISTENCY[0]`` at f32 compute: the
-    logits of the decode path stepped over B x T tokens must match
-    ``forward`` + ``unembed`` within ``CONSISTENCY_TOL`` normwise, and
-    ``make_prefill_step``'s the last decode step's; the bf16-compute
-    values printed beside."""
+def decode_vs_forward(model, B, T):
+    """The logits of ``model``'s decode path stepped over B x T tokens
+    against ``forward`` + ``unembed``, and ``make_prefill_step``'s against
+    the last decode step's, normwise, at f32 and at bf16 compute."""
     import torch
-    from repro_torch.configs.base import get_config
     from repro_torch.data.synthetic import make_batch
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
-    from repro_torch.models.model import Model
-    name, B, T = CONSISTENCY
-    cfg = get_config(name)
-    t0 = time.perf_counter()
-    model = Model(cfg, seed=0, device=device)
-    build_s = time.perf_counter() - t0
-    batch = make_batch(cfg, B, T, seed=0, device=device)
-    out = {"build_s": build_s}
+    batch = make_batch(model.cfg, B, T, seed=0, device=model.device)
+    out = {}
     for label, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         with compute_dtype(model, dt), torch.no_grad():
             t0 = time.perf_counter()
@@ -3191,25 +3257,44 @@ def decode_consistency(device):
                               forward_and_prefill_s=fwd_s,
                               decode_ms_per_step=dec_s / T * 1e3)
             del want, pre, got, cache
-        log(f"decode_consistency {name} ({cfg.n_layers} layers) {label} "
-            f"compute: " + json.dumps(out[label]))
-    del model
-    gc.collect()
-    torch.cuda.empty_cache()
+        log(f"decode vs forward, {model.cfg.name} ({model.cfg.n_layers} "
+            f"layers), B {B} x T {T}, {label} compute: "
+            + json.dumps(out[label]))
     f = out["f32"]
     if not (f["finite"] and f["decode_vs_forward"] <= CONSISTENCY_TOL
             and f["prefill_vs_last"] <= CONSISTENCY_TOL):
-        raise AssertionError(f"decode_consistency at f32: {f}")
+        raise AssertionError(f"decode vs forward at f32: {f}")
     return out
 
 
-def serve_cli():
-    """23e: ``python -m repro_torch.launch.serve`` for each of
-    ``SERVE_RUNS`` (``--batch 4 --prompt-len 32 --gen 16``) must exit 0
-    and print its tokens per second."""
+def decode_consistency(device):
+    """23d: full-width, full-depth ``CONSISTENCY[0]`` at f32 compute: the
+    logits of the decode path stepped over B x T tokens must match
+    ``forward`` + ``unembed`` within ``CONSISTENCY_TOL`` normwise, and
+    ``make_prefill_step``'s the last decode step's; the bf16-compute
+    values printed beside."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.model import Model
+    name, B, T = CONSISTENCY
+    t0 = time.perf_counter()
+    model = Model(get_config(name), seed=0, device=device)
+    build_s = time.perf_counter() - t0
+    try:
+        return dict(decode_vs_forward(model, B, T), build_s=build_s)
+    finally:
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def serve_cli(runs=SERVE_RUNS):
+    """23e: ``python -m repro_torch.launch.serve`` for each of ``runs``
+    (``--batch 4 --prompt-len 32 --gen 16``) must exit 0 and print its
+    tokens per second."""
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     out = {}
-    for arch, reduced in SERVE_RUNS:
+    for arch, reduced in runs:
         argv = ["--arch", arch, "--batch", "4", "--prompt-len", "32",
                 "--gen", "16", "--device", "cuda"] + (
                     ["--reduced"] if reduced else [])
@@ -3266,6 +3351,144 @@ def mla_phases(device, phase):
     out["decode_consistency"] = phase("decode_consistency",
                                       lambda: decode_consistency(device))
     out["serve_cli"] = phase("serve_cli", serve_cli)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phases 24a-24d: Mamba2 and the zamba2 hybrid — full-width zamba2-7b cut to
+# 12 layers, its Mamba2 scans on gla_scan's scalar, inclusive branch
+# ---------------------------------------------------------------------------
+
+def zamba_config():
+    from repro_torch.configs.base import get_config
+    return dataclasses.replace(get_config(ZAMBA_ARCH), n_layers=ZAMBA_LAYERS)
+
+
+def zamba_check(model, batch, bad=None):
+    """``ttrace_check`` under bf16 thresholds of the gla_scan candidate
+    (``bad``: that parameter doubled in it) against the plain ``model``;
+    every launch count set to 0 just before and read just after.  Returns
+    (result, stats)."""
+    import torch
+    from repro_torch.core.harness import make_model_runner, ttrace_check
+    from repro_torch.core.thresholds import MACHINE_EPS
+    from repro_torch.optim.adamw import AdamW
+    dev = model.device
+    opt = AdamW(lr=1e-3)
+    ref_runs, cand_runs, marks = [], [], {}
+    ref = counted_runner(make_model_runner(model, opt, device=dev), ref_runs)
+    cand_run = gla_runner(model, opt)
+    if bad is not None:
+        cand_run = doubled(model, bad)(cand_run)
+    cand_run = counted_runner(cand_run, cand_runs)
+
+    def cand(batch, rewrites=None):
+        marks.setdefault("after_estimate", read_counts()["packed_sq_norms"])
+        return cand_run(batch, rewrites)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    res = ttrace_check(ref, cand, batch, eps=MACHINE_EPS["bfloat16"])
+    counts = read_counts()
+    ratio, where = worst_record(res)
+    stats = dict(counts=counts, ref_runs=ref_runs, cand_runs=cand_runs,
+                 estimate_launches=marks["after_estimate"],
+                 after_estimate_launches=(counts["packed_sq_norms"]
+                                          - marks["after_estimate"]),
+                 seconds=res.seconds, worst=ratio, worst_at=where,
+                 localized=res.localized_module,
+                 peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30)
+    log(res.summary())
+    log(f"zamba2 check{'' if bad is None else f' (doubled {bad})'}: "
+        + json.dumps(stats))
+    return res, stats
+
+
+def zamba_launches(stats, runs):
+    """Each candidate run ``ZAMBA_LAUNCHES_PER_RUN`` gla_scan launches and
+    the reference none; rel-err launches 5 in the estimate and ``runs - 1
+    + 1`` after it (the compare, and one a localization)."""
+    got = [r["gla_scan"] for r in stats["cand_runs"]]
+    if got != [ZAMBA_LAUNCHES_PER_RUN] * runs:
+        raise AssertionError(f"gla_scan launches per candidate run {got}, "
+                             f"expected {ZAMBA_LAUNCHES_PER_RUN} x {runs}")
+    if any(r["gla_scan"] for r in stats["ref_runs"]):
+        raise AssertionError("the reference launched gla_scan")
+    rel = (stats["estimate_launches"], stats["after_estimate_launches"])
+    if rel != (5, runs):
+        raise AssertionError(f"packed_sq_norms launches {rel}, expected "
+                             f"(5, {runs})")
+    other = {k: v for k, v in stats["counts"].items()
+             if k not in ("packed_sq_norms", "gla_scan") and v}
+    if other:
+        raise AssertionError(f"other kernels launched: {other}")
+
+
+def zamba_main(cfg, model, batch, B, S):
+    """24a: the clean check must PASS with ``ZAMBA_LAUNCHES_PER_RUN``
+    gla_scan launches per candidate run and none in the reference, 5 + 1
+    rel-err launches, and the hybrid's tensors (the shared block's taps
+    once per use, its parameters once), all finite."""
+    res, stats = zamba_check(model, batch)
+    if not res.passed:
+        raise AssertionError("clean zamba2 gla_scan check did not PASS")
+    zamba_launches(stats, 1)
+    check_trace_shapes(res, cfg, B, S, taps_per_layer=MAMBA_TAPS_PER_LAYER,
+                       params_per_layer=MAMBA_PARAMS_PER_LAYER)
+    return stats
+
+
+def zamba_control(cfg, model, batch, B, S, bad, module):
+    """24b / 24c: ``bad`` doubled in the candidate must FAIL and be
+    localized to ``module`` (two candidate runs: the check's and the
+    localization's)."""
+    res, stats = zamba_check(model, batch, bad)
+    if res.passed or res.localized_module != module:
+        raise AssertionError(f"doubled {bad}: passed={res.passed}, "
+                             f"localized {res.localized_module!r}, expected "
+                             f"{module!r}")
+    zamba_launches(stats, 2)
+    check_trace_shapes(res, cfg, B, S, taps_per_layer=MAMBA_TAPS_PER_LAYER,
+                       params_per_layer=MAMBA_PARAMS_PER_LAYER)
+    return stats
+
+
+def zamba_phases(device, phase):
+    """Phases 24a-24d (every model and trace freed at the end)."""
+    import torch
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.models.model import Model
+    cfg = zamba_config()
+    B, S = ZAMBA_BATCH
+    t0 = time.perf_counter()
+    model = Model(cfg, seed=0, device=device)
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"zamba2 model {cfg.name}: {ZAMBA_LAYERS} layers, plan "
+        f"{[(seg.name, seg.n) for seg in model.plan]}, {n_params} "
+        f"parameters, built in {time.perf_counter() - t0:.2f} s")
+    batch = make_batch(cfg, B, S, seed=0, device=device)
+    out = {"zamba_reference_step": phase(
+        "zamba_reference_step", lambda: reference_step(cfg, model, batch))}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["zamba_main"] = phase("zamba_main",
+                              lambda: zamba_main(cfg, model, batch, B, S))
+    for name, (bad, module) in zip(("zamba_control_mamba",
+                                    "zamba_control_shared"), ZAMBA_CONTROLS):
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[name] = phase(name, lambda: zamba_control(cfg, model, batch, B,
+                                                      S, bad, module))
+    del batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["zamba_decode"] = phase("zamba_decode", lambda: decode_vs_forward(
+        model, *ZAMBA_DECODE))
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["zamba_serve"] = phase("zamba_serve", lambda: serve_cli(
+        ((ZAMBA_ARCH, True),)))
     return out
 
 
@@ -3438,7 +3661,9 @@ def main() -> int:
             for name, info in ssm_built.items():
                 log(f"ssm_scan build {name}: {json.dumps(info)}")
             for row in ssm_timed:
-                log(f"gla_scan {row['shape']} {row['decay']} on {card}: "
+                log(f"gla_scan {row['shape']} {row['decay']}"
+                    f"{' q/k head stride 0' if row['qk_head_stride_0'] else ''}"
+                    f" on {card}: "
                     f"kernel {row['ms']:.4f} ms ({row['executed_tflops']:.1f}"
                     f" TFLOP/s TF32 executed, {row['bound_share']:.3f} of the"
                     f" bound, this design's TF32 floor "
@@ -3455,6 +3680,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     mla_phases(dev, phase)
+    gc.collect()
+    torch.cuda.empty_cache()
+    zamba = zamba_phases(dev, phase)
     if failures:
         log(f"FAILED phases: {failures}")
         return 1
@@ -3481,9 +3709,12 @@ def main() -> int:
         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
         "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
     row = ssm_timed[0]                   # rwkv6-7b's shape, the path's
+    zamba_launched = zamba["zamba_main"]["counts"]["gla_scan"]
     kernels.append({
         "name": "gla_scan", "route": "cuda", "source": SSM_SOURCE,
-        "replaces": SSM_REPLACES, "launches": ssm["launches"],
+        "replaces": SSM_REPLACES, "launches": ssm["launches"] + zamba_launched,
+        "launches_by_path": {"rwkv6-7b": ssm["launches"],
+                             "zamba2-7b": zamba_launched},
         "max_abs_err": ssm_err, "ms": row["ms"],
         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
         "bound_by": row["bound_by"], "library_ms": row["library_ms"]})

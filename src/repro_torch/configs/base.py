@@ -1,11 +1,11 @@
-"""Architecture configuration: the dense, MoE, MLA and SSM subset of
-``repro/configs/base.py``.
+"""Architecture configuration: the dense, MoE, MLA, SSM and hybrid subset
+of ``repro/configs/base.py``.
 
-The port carries only the fields the dense decoder, MoE, MLA and RWKV-6
-paths read (``MoEConfig``, ``MLAConfig`` and ``SSMConfig`` are copied
-whole, shared-expert and mamba2 fields included); hybrid and frontend
-fields arrive with the slices that port those models.  ``reduced()``
-gives the same CPU-smoke variant as the reference.
+The port carries only the fields the dense decoder, MoE, MLA, RWKV-6,
+Mamba2 and zamba2-hybrid paths read (``MoEConfig``, ``MLAConfig``,
+``SSMConfig`` and ``HybridConfig`` are copied whole); the frontend fields
+arrive with the slice that ports those models.  ``reduced()`` gives the
+same CPU-smoke variant as the reference.
 """
 from __future__ import annotations
 
@@ -49,9 +49,15 @@ class SSMConfig:
 
 
 @dataclass(frozen=True)
+class HybridConfig:
+    attn_every: int = 6         # apply the shared attention block every N ssm blocks
+    shared_attn: bool = True    # single shared-parameter transformer block (zamba2)
+
+
+@dataclass(frozen=True)
 class ArchConfig:
     name: str
-    arch_type: str              # dense | moe | ssm (the families ported so far)
+    arch_type: str              # dense | moe | ssm | hybrid (ported so far)
     n_layers: int
     d_model: int
     n_heads: int
@@ -72,6 +78,7 @@ class ArchConfig:
     moe: Optional[MoEConfig] = None
     mla: Optional[MLAConfig] = None
     ssm: Optional[SSMConfig] = None
+    hybrid: Optional[HybridConfig] = None
 
     # numerics
     param_dtype: str = "float32"
@@ -110,6 +117,8 @@ class ArchConfig:
             kw["ssm"] = dataclasses.replace(
                 self.ssm, d_state=16, d_head=32, chunk=32, decay_lora=16,
                 mix_lora=8)
+        if self.hybrid is not None:
+            kw["hybrid"] = dataclasses.replace(self.hybrid, attn_every=2)
         return dataclasses.replace(
             self,
             n_layers=2,
@@ -139,7 +148,8 @@ def register(cfg: ArchConfig) -> ArchConfig:
 def get_config(name: str) -> ArchConfig:
     # importing each per-arch module registers it
     from repro_torch.configs import (  # noqa: F401
-        deepseek_v2_236b, gpt_paper, mixtral_8x7b, rwkv6_7b, tinyllama_11b)
+        deepseek_v2_236b, gpt_paper, mixtral_8x7b, rwkv6_7b, tinyllama_11b,
+        zamba2_7b)
     try:
         return _REGISTRY[name]
     except KeyError:

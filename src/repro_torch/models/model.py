@@ -1,15 +1,19 @@
-"""Model assembly: the dense-decoder, MoE (GQA or MLA attention) and
-RWKV-6 port of ``repro/models/model.py``.
+"""Model assembly: the dense-decoder, MoE (GQA or MLA attention), RWKV-6
+and zamba2-hybrid port of ``repro/models/model.py``.
 
 ``named_parameters()`` gives exactly the reference's
 ``collector.flatten_named(params)`` names (``embedding.word_embeddings``,
 ``final_norm``, ``layers.{i}.self_attention.linear_qkv.w``,
-``layers.{i}.time_mix.mix_A``, ...), and the forward taps the reference's
-names in the reference's order.  Sharding constraints have no counterpart
-on one card.
+``layers.{i}.time_mix.mix_A``, ``mamba{g}.{j}.mixer.in_proj.w``,
+``shared_attn.mlp.down.w``, ...), and the forward taps the reference's
+names in the reference's order.  A hybrid's one shared attention block is
+registered once, as ``shared_attn``, and applied at each shared segment
+under that segment's scope (``shared_attn_{g}``): its gradients sum the
+uses.  Sharding constraints have no counterpart on one card.
 
 Decode (``init_cache`` / ``decode_step``): caches are per-layer lists under
-each segment's name (``{"layers": [cache of layer 0, ...]}``), the
+each segment's name (``{"layers": [cache of layer 0, ...]}``; each use of
+the shared block has its own, ``{"shared_attn_{g}": [cache]}``), the
 reference's layout at ``scan_layers=False``; its stacked ``scan_layers``
 caches have no counterpart, as the port's parameters are per layer too.
 """
@@ -31,8 +35,8 @@ from repro_torch.models.layers import (SwiGLUMLP, _logits,
                                        chunked_cross_entropy, cross_entropy,
                                        rmsnorm)
 from repro_torch.models.moe import MoE
-from repro_torch.models.ssm import (RWKV6ChannelMix, RWKV6TimeMix,
-                                    rwkv6_init_state)
+from repro_torch.models.ssm import (Mamba2, RWKV6ChannelMix, RWKV6TimeMix,
+                                    mamba2_init_state, rwkv6_init_state)
 
 # the reference switches to chunked_cross_entropy above S * V = 2^26
 _CHUNKED_CE_ELEMS = 1 << 26
@@ -41,9 +45,11 @@ _CHUNKED_CE_ELEMS = 1 << 26
 @dataclass(frozen=True)
 class Segment:
     name: str          # params key; also the tap scope
-    kind: str          # attn_mlp | attn_dense_mlp | attn_moe | rwkv (ported)
+    kind: str          # attn_mlp | attn_dense_mlp | attn_moe | rwkv | mamba
+                       # | shared_attn
     n: int             # number of layers in this segment
     layer0: int        # global index of the first layer (canonical naming)
+    shared: bool = False  # params live under the shared key, not per-segment
 
 
 def build_plan(cfg: ArchConfig) -> list[Segment]:
@@ -62,10 +68,23 @@ def build_plan(cfg: ArchConfig) -> list[Segment]:
         return segs
     if cfg.arch_type == "ssm":
         return [Segment("layers", "rwkv", L, 0)]
-    # hybrid and the frontends are later slices
+    if cfg.arch_type == "hybrid":
+        # groups of attn_every mamba layers, each full one followed by a
+        # use of the shared block; a partial last group has none
+        k, segs, i, g = cfg.hybrid.attn_every, [], 0, 0
+        while i < L:
+            n = min(k, L - i)
+            segs.append(Segment(f"mamba{g}", "mamba", n, i))
+            i += n
+            if n == k and cfg.hybrid.shared_attn:
+                segs.append(Segment(f"shared_attn_{g}", "shared_attn", 1, i,
+                                    shared=True))
+            g += 1
+        return segs
+    # the frontends are a later slice
     raise NotImplementedError(
-        f"{cfg.name}: only dense and MoE decoders and RWKV-6 are ported "
-        f"so far")
+        f"{cfg.name}: only dense and MoE decoders, RWKV-6 and the zamba2 "
+        f"hybrid are ported so far")
 
 
 def _out_scale(cfg):  # megatron-style scaled residual-output init
@@ -75,10 +94,10 @@ def _out_scale(cfg):  # megatron-style scaled residual-output init
 class Block(nn.Module):
     """``block_init`` / ``block_apply`` for the attention kinds:
     ``attn_mlp``, ``attn_dense_mlp`` (an MoE arch's leading dense layers,
-    of width ``d_ff_dense``) and ``attn_moe``, with GQA or (``attn ==
-    "mla"``) MLA attention.  ``forward`` gives ``(x, aux)``; ``aux`` is the
-    MoE load-balance loss, ``None`` for a dense MLP.  ``step`` is the
-    one-token decode."""
+    of width ``d_ff_dense``), ``attn_moe`` and a hybrid's ``shared_attn``,
+    with GQA or (``attn == "mla"``) MLA attention.  ``forward`` gives
+    ``(x, aux)``; ``aux`` is the MoE load-balance loss, ``None`` for a
+    dense MLP.  ``step`` is the one-token decode."""
 
     def __init__(self, gen, cfg: ArchConfig, dtype, kind="attn_mlp"):
         super().__init__()
@@ -172,9 +191,38 @@ class RWKVBlock(nn.Module):
                                 self.input_norm.device)
 
 
+class MambaBlock(nn.Module):
+    """``block_init`` / ``block_apply`` for the ``mamba`` kind: a pre-norm
+    Mamba2 mixer with a residual.  As for ``rwkv``, a candidate puts the
+    scan on the kernel by binding ``models.ssm.lin_attn`` itself."""
+
+    def __init__(self, gen, cfg: ArchConfig, dtype):
+        super().__init__()
+        self.input_norm = nn.Parameter(torch.ones(cfg.d_model, dtype=dtype))
+        self.mixer = Mamba2(gen, cfg, dtype, _out_scale(cfg))
+
+    def forward(self, x, ctx, use_kernel=False, precision=None):
+        return self.step(x, None, None, ctx)[0], None
+
+    def step(self, x, state, pos, ctx, mla_impl="absorbed",
+             mla_bugs=frozenset()):
+        """``(x, new state)`` from ``state`` (None: zeros), as
+        ``RWKVBlock.step``."""
+        h = rmsnorm(self.input_norm, x)
+        with ctx.scope("mixer"):
+            mo, new_state = self.mixer(h, ctx=ctx, state=state)
+        return x + mo, new_state
+
+    def init_cache(self, batch, seq_len, dtype):
+        return mamba2_init_state(self.mixer.cfg, batch, dtype,
+                                 self.input_norm.device)
+
+
 def make_block(gen, cfg: ArchConfig, kind: str, dtype) -> nn.Module:
     if kind == "rwkv":
         return RWKVBlock(gen, cfg, dtype)
+    if kind == "mamba":
+        return MambaBlock(gen, cfg, dtype)
     return Block(gen, cfg, dtype, kind)
 
 
@@ -216,12 +264,26 @@ class Model(nn.Module):
                  ).to(dtype))
         # one ModuleList a segment, under the segment's name: an MoE arch's
         # leading dense layers are ``dense_layers.{j}``, as the reference
-        # names their parameters (its taps use the global ``layers.{li}``)
+        # names their parameters (its taps use the global ``layers.{li}``);
+        # a hybrid's shared block is one module, ``shared_attn``, built at
+        # its first use
         self.layers = nn.ModuleList()
         for seg in self.plan:
-            setattr(self, seg.name, nn.ModuleList(
-                make_block(gen, cfg, seg.kind, dtype) for _ in range(seg.n)))
+            if not seg.shared:
+                setattr(self, seg.name, nn.ModuleList(
+                    make_block(gen, cfg, seg.kind, dtype)
+                    for _ in range(seg.n)))
+            elif not hasattr(self, "shared_attn"):
+                self.shared_attn = make_block(gen, cfg, seg.kind, dtype)
         self.to(dev)
+
+    def scoped_blocks(self, seg: Segment):
+        """``(tap scope, block)`` of each layer of ``seg``: ``layers.{li}``,
+        or the shared block under the segment's own name."""
+        if seg.shared:
+            return [(seg.name, self.shared_attn)]
+        return [(f"layers.{seg.layer0 + j}", block)
+                for j, block in enumerate(getattr(self, seg.name))]
 
     @property
     def device(self) -> torch.device:
@@ -237,8 +299,8 @@ class Model(nn.Module):
         ctx = ensure_ctx(ctx)
         aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
         for seg in self.plan:
-            for j, block in enumerate(getattr(self, seg.name)):
-                with ctx.scope(f"layers.{seg.layer0 + j}"):
+            for scope, block in self.scoped_blocks(seg):
+                with ctx.scope(scope):
                     h, aux = block(h, ctx, use_kernel=use_kernel,
                                    precision=precision)
                 if aux is not None:
@@ -283,11 +345,12 @@ class Model(nn.Module):
 
     def init_cache(self, batch, seq_len):
         """``{segment name: [each layer's cache]}`` on the model's device,
-        in the compute dtype (the RWKV scan state is f32).  A cache holds
-        ``seq_len`` positions (a sliding-window arch's at most ``window``,
-        as a ring)."""
+        in the compute dtype (the SSM scan states are f32); each use of a
+        hybrid's shared block has its own.  A cache holds ``seq_len``
+        positions (a sliding-window arch's at most ``window``, as a
+        ring)."""
         return {seg.name: [blk.init_cache(batch, seq_len, self.cdtype)
-                           for blk in getattr(self, seg.name)]
+                           for _, blk in self.scoped_blocks(seg)]
                 for seg in self.plan}
 
     @torch.no_grad()
@@ -307,8 +370,8 @@ class Model(nn.Module):
         new = {}
         for seg in self.plan:
             new[seg.name] = []
-            for j, block in enumerate(getattr(self, seg.name)):
-                with ctx.scope(f"layers.{seg.layer0 + j}"):
+            for j, (scope, block) in enumerate(self.scoped_blocks(seg)):
+                with ctx.scope(scope):
                     h, c = block.step(h, caches[seg.name][j], pos, ctx,
                                       mla_impl=mla_impl, mla_bugs=mla_bugs)
                 new[seg.name].append(c)

@@ -1,6 +1,7 @@
-"""SSM / linear-attention blocks: the RWKV-6 part of ``repro/models/ssm.py``.
+"""SSM / linear-attention blocks: the port of ``repro/models/ssm.py``,
+Mamba2 (SSD) and RWKV-6 "Finch".
 
-Both SSM families of the reference are instances of a gated linear-attention
+Both SSM families are instances of a gated linear-attention
 recurrence over a per-head state S in R^{dk x dv}:
 
     S_t = diag(w_t) . S_{t-1} + k_t v_t^T
@@ -17,9 +18,11 @@ recurrence over a per-head state S in R^{dk x dv}:
 ``chunk_scan`` is that chunked math on its own (no bonus, no cast), shared
 with the kernel's plain version.  The intra-chunk products of every chunk
 are taken at once; only the (dk, dv) state walks the chunks in a loop.
-``rwkv6_init_state`` gives the decode state the time and channel mixes
-continue from (``state=``).  The Mamba2 mixer and its state are not ported
-yet.
+``Mamba2`` is ``mamba2_init`` / ``mamba2_forward``: q and k are its C and
+B projections broadcast over the heads (views of head stride 0, as the
+reference's ``broadcast_to``), the decay a scalar per head.
+``mamba2_init_state`` and ``rwkv6_init_state`` give the decode states the
+mixers continue from (``state=``).
 """
 from __future__ import annotations
 
@@ -29,7 +32,7 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.tap import ensure_ctx
-from repro_torch.models.layers import Linear, dense_init, linear
+from repro_torch.models.layers import Linear, dense_init, linear, rmsnorm
 
 CLAMP = 20.0
 
@@ -162,6 +165,115 @@ def lin_attn(q, k, v, log_w, chunk=128, u=None, s0=None, chunked=True):
     if chunked:
         return lin_attn_chunked(q, k, v, log_w, chunk=chunk, u=u, s0=s0)
     return lin_attn_recurrent(q, k, v, log_w, u=u, s0=s0)
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 block (SSD)
+# ---------------------------------------------------------------------------
+
+def mamba2_dims(cfg: ArchConfig):
+    s = cfg.ssm
+    d_inner = s.expand * cfg.d_model
+    n_heads = d_inner // s.d_head
+    conv_dim = d_inner + 2 * s.d_state
+    return d_inner, n_heads, conv_dim
+
+
+def _causal_conv(w, b, x, state=None):
+    """Depthwise causal conv1d as the reference's explicit sum of K shifted
+    products in x's dtype.  x:(B,S,C), w:(K,C).  ``state``:(B,K-1,C) are
+    the trailing inputs of the previous segment (decode)."""
+    K = w.shape[0]
+    if state is None:
+        pad = torch.zeros((x.shape[0], K - 1, x.shape[-1]), dtype=x.dtype,
+                          device=x.device)
+    else:
+        pad = state.to(x.dtype)
+    xp = torch.cat([pad, x], dim=1)
+    y = sum(xp[:, i:i + x.shape[1]] * w[i].to(x.dtype) for i in range(K))
+    new_state = xp[:, -(K - 1):] if K > 1 else None
+    return y + b.to(x.dtype), new_state
+
+
+class Mamba2(nn.Module):
+    """``mamba2_init`` / ``mamba2_forward``: the in-projection to z, x, B, C
+    and dt, a depthwise causal conv per segment (x, B, C), the scan through
+    the module-level ``lin_attn`` (scalar per-head decay, inclusive), the
+    D skip, a gated RMS norm over all of d_inner and the out-projection."""
+
+    def __init__(self, gen, cfg: ArchConfig, dtype, out_scale=None):
+        super().__init__()
+        s = cfg.ssm
+        d_inner, H, conv_dim = mamba2_dims(cfg)
+        f32 = torch.float32
+        self.cfg = cfg
+        # z, x, B, C, dt
+        self.in_proj = Linear(gen, cfg.d_model,
+                              2 * d_inner + 2 * s.d_state + H, dtype)
+        self.conv_w = nn.Parameter(dense_init(gen, s.conv_kernel, conv_dim,
+                                              dtype, scale=0.2))
+        self.conv_b = nn.Parameter(torch.zeros(conv_dim, dtype=dtype))
+        self.A_log = nn.Parameter(torch.zeros(H, dtype=f32))   # A = -1
+        self.D = nn.Parameter(torch.ones(H, dtype=f32))
+        self.dt_bias = nn.Parameter(torch.zeros(H, dtype=f32))
+        self.gate_norm = nn.Parameter(torch.ones(d_inner, dtype=dtype))
+        self.out_proj = Linear(gen, d_inner, cfg.d_model, dtype,
+                               scale=out_scale)
+
+    def forward(self, x, ctx=None, state=None, chunked=True):
+        """x:(B,S,d_model); ``state``: dict(conv, ssm) to continue from
+        (decode).  Returns (y, new state)."""
+        ctx = ensure_ctx(ctx)
+        x = ctx.tap("input", x)
+        s = self.cfg.ssm
+        d_inner, H, _ = mamba2_dims(self.cfg)
+        B, S, _ = x.shape
+        z, xin, Bm, Cm, dt = torch.split(
+            self.in_proj(x), [d_inner, d_inner, s.d_state, s.d_state, H],
+            dim=-1)
+        # the conv runs per segment, as the reference's (same sums)
+        conv_state = None if state is None else state["conv"]
+        outs, new_states = [], []
+        off = 0
+        for seg in (xin, Bm, Cm):
+            w = seg.shape[-1]
+            st = None if conv_state is None else conv_state[..., off:off + w]
+            o, ns = _causal_conv(self.conv_w[:, off:off + w],
+                                 self.conv_b[off:off + w], seg, st)
+            outs.append(F.silu(o))
+            new_states.append(ns)
+            off += w
+        xin, Bm, Cm = outs
+        new_conv = (None if new_states[0] is None
+                    else torch.cat(new_states, dim=-1))
+
+        dt = F.softplus(dt.float() + self.dt_bias)                  # (B,S,H)
+        log_w = (dt * -torch.exp(self.A_log))[..., None]            # (B,S,H,1)
+        xh = xin.reshape(B, S, H, s.d_head)
+        v = xh.float() * dt[..., None]                              # dt * x
+        q = Cm[:, :, None, :].expand(B, S, H, s.d_state)
+        k = Bm[:, :, None, :].expand(B, S, H, s.d_state)
+
+        ssm_state = None if state is None else state["ssm"]
+        y, new_ssm = lin_attn(q, k, v.to(x.dtype), log_w, chunk=s.chunk,
+                              s0=ssm_state, chunked=chunked)
+        y = y.float() + self.D[None, None, :, None] * xh.float()
+        y = y.reshape(B, S, d_inner).to(x.dtype)
+        y = rmsnorm(self.gate_norm, y * F.silu(z))
+        out = ctx.tap("output", self.out_proj(y))
+        return out, {"conv": new_conv, "ssm": new_ssm}
+
+
+def mamba2_init_state(cfg: ArchConfig, batch, dtype, device):
+    """Zero decode state of one Mamba2 mixer: the conv's trailing inputs
+    (B, K-1, conv_dim) in ``dtype`` and the scan state (B,H,d_state,d_head)
+    in f32."""
+    s = cfg.ssm
+    _, H, conv_dim = mamba2_dims(cfg)
+    return {"conv": torch.zeros((batch, s.conv_kernel - 1, conv_dim),
+                                dtype=dtype, device=device),
+            "ssm": torch.zeros((batch, H, s.d_state, s.d_head),
+                               dtype=torch.float32, device=device)}
 
 
 # ---------------------------------------------------------------------------

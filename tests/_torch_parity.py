@@ -2,9 +2,12 @@
 
 Parameters and batches come from the JAX package (``Model.init``,
 ``make_batch``) and cross to the port as numpy by ``flatten_named`` name.
-Configs are ``gpt-paper`` and ``tinyllama-1.1b`` (the dense ``CONFIGS``) and
+Configs are ``gpt-paper`` and ``tinyllama-1.1b`` (the dense ``CONFIGS``),
 ``rwkv6-7b`` (``RWKV``, at ``RWKV_SEQ`` tokens so that its chunk of 32
-gives two chunks), each ``.reduced()`` with ``n_layers=2, vocab=256``.
+gives two chunks) and ``zamba2-7b`` (``ZAMBA``, also at ``RWKV_SEQ``), each
+``.reduced()`` with ``n_layers=2, vocab=256``; the hybrid has
+``ZAMBA_LAYERS`` layers instead, two shared-block uses (every 2 Mamba2
+layers) and a partial last group.
 """
 import dataclasses
 import functools
@@ -25,10 +28,11 @@ from repro_torch.models.model import Model as TorchModel
 CONFIGS = ("gpt-paper", "tinyllama-1.1b")
 BATCH, SEQ = 2, 16
 RWKV, RWKV_SEQ = "rwkv6-7b", 64
+ZAMBA, ZAMBA_LAYERS = "zamba2-7b", 5
 
 
 def configs(name):
-    kw = dict(n_layers=2, vocab=256)
+    kw = dict(n_layers=ZAMBA_LAYERS if name == ZAMBA else 2, vocab=256)
     return (dataclasses.replace(jax_get_config(name).reduced(), **kw),
             dataclasses.replace(torch_get_config(name).reduced(), **kw))
 

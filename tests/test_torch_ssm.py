@@ -44,6 +44,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from _torch_parity import (RWKV, RWKV_SEQ, configs, jax_setup,  # noqa: E402
                            one_thread, to_jax_trace, torch_model)
+from repro.configs.base import get_config as jax_get_config  # noqa: E402
 from repro.core.checker import compare_traces as jax_compare  # noqa: E402
 from repro.core.collector import unflatten_named  # noqa: E402
 from repro.core.harness import make_model_runner as jax_runner  # noqa: E402
@@ -52,8 +53,9 @@ from repro.core.thresholds import MACHINE_EPS, estimate_thresholds  # noqa: E402
 from repro.kernels import ops as jax_ops  # noqa: E402
 from repro.kernels.ssm_scan import gla_scan as jax_gla  # noqa: E402
 from repro.models import ssm as JS  # noqa: E402
+from repro.models.model import build_plan as jax_build_plan  # noqa: E402
 from repro.optim.adamw import AdamW as JaxAdamW  # noqa: E402
-from repro_torch.configs.base import ArchConfig  # noqa: E402
+from repro_torch.configs.base import get_config as torch_get_config  # noqa: E402
 from repro_torch.core.collector import (SECTION_FIELDS, named_params,  # noqa: E402
                                         trace_fn_step, trace_train_step)
 from repro_torch.core.harness import make_model_runner, ttrace_check  # noqa: E402
@@ -285,10 +287,17 @@ def test_plan_names_and_decay_mask_are_the_reference_ones():
     mask = dict(zip(named, jax.tree.leaves(JaxAdamW()._decay_mask(params))))
     assert {k: AdamW().decays(k) for k in named} == \
         {k: bool(v) for k, v in mask.items()}
-    hybrid = ArchConfig(name="h", arch_type="hybrid", n_layers=2, d_model=8,
-                        n_heads=2, n_kv_heads=2, d_ff=16, vocab=16)
-    with pytest.raises(NotImplementedError):
-        TM.build_plan(hybrid)
+    # the hybrid's plan is the reference's: groups of mamba layers, each
+    # full one followed by a use of the shared block
+    for reduced, layers in ((True, 5), (False, 12), (False, 81)):
+        j, t = jax_get_config("zamba2-7b"), torch_get_config("zamba2-7b")
+        if reduced:
+            j, t = j.reduced(), t.reduced()
+        j, t = (dataclasses.replace(c, n_layers=layers) for c in (j, t))
+        assert [(s.name, s.kind, s.n, s.layer0, s.shared)
+                for s in TM.build_plan(t)] == \
+            [(s.name, s.kind, s.n, s.layer0, s.shared)
+             for s in jax_build_plan(j)]
 
 
 def test_time_mix_and_channel_mix_match_reference():
