@@ -58,11 +58,14 @@ prints no result line):
              version and a float64 ``attention_ref``: bf16 (the TMA + wgmma
              kernel) causal at the main path's shape (8 x 1024, 8 heads of
              64), the long path's (2 x 4096), a GQA shape at
-             tinyllama-1.1b's heads (2 x 2048, 32 heads, 4 kv) and a D 128
-             one at qwen3-32b's (1 x 1024, 64 heads, 8 kv); then the
-             reference tests' sweep and two ragged-S shapes (S 100 and 200,
-             rows past S from TMA's zero fill) in every mode, in bf16 and
-             in f32 (the FMA kernel); f32 within 2e-5 of float64, bf16
+             tinyllama-1.1b's heads (2 x 2048, 32 heads, 4 kv), a D 128
+             GQA one (1 x 1024, 64 heads, 8 kv), and the D 80 paths of
+             25a (1 x 4096, 64 heads, 8 kv, causal) and 25d (2 x 1024, 16
+             heads, bidirectional); then the reference tests' sweep, D 80
+             and D 112 shapes (the columns past D from TMA's zero fill)
+             and four ragged-S shapes (S 100 and 200, rows past S from
+             TMA's zero fill) in every mode, in bf16 and in f32 (the FMA
+             kernel); f32 within 2e-5 of float64, bf16
              within half a bf16 ulp (plus 2e-5); each case's entry point
              logged and checked against its dtype; two launches
              bit-identical; out-of-contract shapes and operands raise,
@@ -78,7 +81,9 @@ prints no result line):
              ``layers.3.self_attention.linear_qkv.w`` doubled must FAIL and
              be localized to ``layers.3.self_attention`` (24 launches);
 15. flash_timing — the bf16 kernel per launch at the main and long
-             shapes (CUDA events, the card held busy while the launches
+             shapes, causal, and at 25a's (causal) and 25d's
+             (bidirectional) D 80 shapes (CUDA events, the card held busy
+             while the launches
              are queued, so the wrapper's host time does not show; the
              wrapper's back-to-back time beside it), its plain version and
              ``scaled_dot_product_attention`` timed the same way as the
@@ -86,7 +91,8 @@ prints no result line):
              mode, and under each of its backends with that mode off),
              beside the bound (4 D flops per unmasked
              pair), the kernel's share of it and its executed TFLOP/s (6 D
-             flops per unmasked pair: p v is taken as p_hi v + p_lo v); the
+             flops per unmasked pair: p v is taken as p_hi v + p_lo v; at
+             D 80, 2 D + 4 x 128: p v runs over whole 64-column boxes); the
              registers, shared memory and spills of each build; the share
              of a consumer warpgroup's SM cycles each phase takes (one
              launch of the profiled build, ``clock64``);
@@ -286,11 +292,56 @@ prints no result line):
              1e-4 normwise of ``forward`` + ``unembed`` (bf16 printed
              beside); ``python -m repro_torch.launch.serve --arch zamba2-7b
              --reduced`` must exit 0 and print its tokens per second.
+25a. qwen3_main (25a-25e run last, each model freed before the next) —
+             ``qwen3-32b`` at its published width (d 5120, 64 heads of 80,
+             kv 8, ``qk_norm``, d_ff 25600, vocab 151936, bf16) cut from 64
+             layers to 1 with tied embeddings for memory, B 1 x S 4096,
+             seed 0, bf16 thresholds: the flash candidate must PASS
+             against the plain model (``attention_blockwise``), 1 launch
+             per candidate run (bf16, causal, D 80), none in the
+             reference, 5 + 1 rel-err launches and no other kernel; then
+             (qwen3_control) ``layers.0.self_attention.q_norm`` doubled in
+             the candidate must FAIL at ``layers.0.self_attention``;
+25b. codeqwen_dist — ``codeqwen1.5-7b`` at its published width (d 4096,
+             32 heads of 128, kv 32, ``qkv_bias``, d_ff 13440, vocab 92416,
+             untied, bf16) cut from 32 layers to 2, B 1 x S 4096: the tp2
+             sp candidate (the bias split with its fused QKV columns) must
+             PASS with no kernel but the rel-err one, and a second
+             candidate run must be bit-identical; then
+             (codeqwen_control) the candidate's
+             ``layers.1.self_attention.linear_qkv.b`` shifted by 0.1
+             (biases start at zero) must FAIL at
+             ``layers.1.self_attention``;
+25c. llava_main — ``llava-next-34b`` at its published width (d 7168, 56
+             heads of 128, kv 8, d_ff 20480, vocab 64000, vision_dim 1024,
+             untied, bf16) cut from 60 layers to 1, B 1 x S 4096: 2880
+             patch features (5 anyres tiles x 576) ahead of 1216 text
+             tokens, the thresholds from the perturbed ``image_embeds``;
+             the flash candidate must PASS with 1 launch per candidate
+             run; then (llava_control) ``vision_proj.w`` doubled must
+             FAIL at ``embedding``;
+25d. hubert_main — ``hubert-xlarge`` at its published width and depth
+             (48 layers, d 1280, 16 heads of 80, d_ff 5120 GELU, vocab
+             504, audio_dim 512, no rope, bidirectional, bf16), B 2 x S
+             1024, the thresholds from the perturbed ``features``: the
+             flash candidate must PASS with 48 launches per candidate run
+             (bf16, bidirectional, D 80); then (hubert_control_mlp)
+             ``layers.23.mlp.fc2.w`` doubled must FAIL at
+             ``layers.23.mlp`` and (hubert_control_mask) ``mask_embed``
+             doubled must FAIL, with ``embedding/output`` under its bf16
+             threshold, at the measured ``layers.1.self_attention``
+             (``HUBERT_CONTROLS``);
+25e. dense_cli — ``python -m repro_torch.launch.serve --reduced`` for
+             ``qwen3-32b`` and ``codeqwen1.5-7b`` must exit 0 and print
+             their tokens per second, for ``hubert-xlarge`` exit non-zero
+             as encoder-only; ``list_configs()`` names all eleven configs.
 
 Every kernel's launch count is set to 0 just before each path (phases 4,
-8, 12, 13, 14, 15a, 15b, 15c, 17, 18, 20a-20e, 21a-21d, 22a-22c, 23a-23c
-and 24a-24c) and read just after it.  The ``kernels`` line's ``gla_scan``
-launches are phase 17's and 24a's, ``launches_by_path`` beside.  At the end come the card's name and power
+8, 12, 13, 14, 15a, 15b, 15c, 17, 18, 20a-20e, 21a-21d, 22a-22c, 23a-23c,
+24a-24c and 25a-25d) and read just after it.  The ``kernels`` line's
+``gla_scan`` launches are phase 17's and 24a's, its ``flash_attention``
+launches phase 12's, 22c's, 25a's, 25c's and 25d's, ``launches_by_path``
+beside each.  At the end come the card's name and power
 limit, then a ``{"kernels": [...]}`` JSON object, then the last line,
 ``{"ok": true, "device": {...}}``.
 """
@@ -335,17 +386,26 @@ FLASH_REPLACES = "src/repro/kernels/flash_attention.py:110"
 FLASH_LAUNCHES_PER_RUN = 12        # one per layer of full-width gpt-paper
 FLASH_F32_TOL = 2e-5               # absolute, against float64 (test_kernels)
 # (B, S, H, Hkv, D): the main path's attention, the long path's, a GQA
-# shape at tinyllama-1.1b's heads and a D 128 GQA one at qwen3-32b's
+# shape at tinyllama-1.1b's heads and a D 128 GQA one (64 heads, 8 kv)
 FLASH_MAIN = (8, 1024, 8, 8, 64)
 FLASH_LONG = (2, 4096, 8, 8, 64)
 FLASH_BF16_SHAPES = (FLASH_MAIN, FLASH_LONG, (2, 2048, 32, 4, 64),
                      (1, 1024, 64, 8, 128))
-# the reference tests' sweep (tests/test_kernels.py) and two ragged S,
-# whose rows past S the bf16 kernel's TMA fills with zeros; every mode,
+# the D 80 paths of phases 25a (qwen3-32b, causal) and 25d (hubert-xlarge,
+# bidirectional) at their own shapes, bf16
+FLASH_QWEN3 = (1, 4096, 64, 8, 80)
+FLASH_HUBERT = (2, 1024, 16, 16, 80)
+FLASH_PATHS = ((FLASH_QWEN3, "causal"), (FLASH_HUBERT, "bidirectional"))
+# the reference tests' sweep (tests/test_kernels.py), the head dims off a
+# multiple of 64 (80 and 112: the columns past D come from TMA's zero fill
+# in bf16, the FMA kernel's partial column groups in f32) and four ragged
+# S, whose rows past S the bf16 kernel's TMA fills with zeros; every mode,
 # both dtypes
 FLASH_SWEEP_SHAPES = ((1, 128, 2, 2, 64), (2, 256, 4, 2, 64),
                       (1, 256, 8, 2, 128), (1, 128, 4, 1, 64),
-                      (1, 100, 4, 2, 64), (1, 200, 4, 1, 128))
+                      (1, 256, 4, 2, 80), (2, 128, 4, 4, 112),
+                      (1, 100, 4, 2, 64), (1, 200, 4, 1, 128),
+                      (1, 100, 4, 2, 80), (1, 200, 4, 1, 112))
 FLASH_MODES = (("causal", 0), ("swa", 64), ("bidirectional", 0))
 # the distributed candidates of full-width gpt-paper (8 x 1024): the main
 # one on 8 emulated ranks, ZeRO-1, and the controls with the bug each injects
@@ -448,6 +508,47 @@ SHARED_PARAMS = 7            # 2 norms, qkv, proj, 3 SwiGLU
 ZAMBA_CONTROLS = (("mamba1.0.mixer.out_proj.w", "layers.6.mixer"),
                   ("shared_attn.mlp.down.w", "shared_attn_0.mlp"))
 ZAMBA_DECODE = (2, 256)      # B x T of phase 24d, at f32 compute
+# the dense options' phases (25a-25e), each config at its published width:
+# (arch, depth, tied embeddings), B x S, the parameters of a layer and of
+# the frontend (check_trace_shapes) and the controls (parameter, the module
+# the check must name).  qwen3-32b: depth 64 -> 1 and tied, as the mixtral
+# phases; codeqwen1.5-7b: depth 32 -> 2 (a control on the second layer),
+# through the tp2 sp candidate; llava-next-34b: depth 60 -> 1, S 4096 =
+# 2880 patch features (5 anyres tiles x 576) + 1216 text tokens;
+# hubert-xlarge at full depth, B 2 x S 1024 (some 20 s of audio at 50
+# frames a second)
+QWEN3 = ("qwen3-32b", 1, True)
+QWEN3_BATCH = (1, 4096)
+QWEN3_CONTROL = ("layers.0.self_attention.q_norm", "layers.0.self_attention")
+CODEQWEN = ("codeqwen1.5-7b", 2, False)
+CODEQWEN_BATCH = (1, 4096)
+CODEQWEN_PCFG = dict(tp=2, sp=True)
+# shifted, not doubled: biases start at zero
+CODEQWEN_CONTROL = ("layers.1.self_attention.linear_qkv.b",
+                    "layers.1.self_attention")
+CODEQWEN_SHIFT = 0.1
+LLAVA = ("llava-next-34b", 1, False)
+LLAVA_BATCH = (1, 4096)
+LLAVA_CONTROL = ("vision_proj.w", "embedding")
+HUBERT = ("hubert-xlarge", 48, False)
+HUBERT_BATCH = (2, 1024)
+# the doubled mask_embed moves the embedding output by less than its bf16
+# threshold's 12.5% floor (174 of 2048 frames masked), so the check FAILs
+# downstream: by propagation at the first flagged activation, measured
+# layers.1.self_attention, with no module flagged in isolation; both
+# packages name a module past the embedding at bf16 eps on the CPU too
+# (tests/test_torch_configs.py; PERF.md section 6)
+HUBERT_CONTROLS = (("layers.23.mlp.fc2.w", "layers.23.mlp"),
+                   ("mask_embed", "layers.1.self_attention"))
+# parameters a layer: 2 norms, qkv, proj, 3 SwiGLU (+ q_norm, k_norm; +
+# the qkv bias); hubert's: 2 norms, qkv, proj, fc1 and fc2 with biases
+QWEN3_PARAMS_PER_LAYER = 9
+CODEQWEN_PARAMS_PER_LAYER = 8
+HUBERT_PARAMS_PER_LAYER = 8
+LLAVA_PARAMS_PER_LAYER = 7
+LLAVA_FRONTEND_PARAMS = 2    # vision_proj w, b
+HUBERT_FRONTEND_PARAMS = 3   # audio_proj w, b, mask_embed
+DENSE_SERVE = (("qwen3-32b", True), ("codeqwen1.5-7b", True))
 MOE_WATCH = ("layers.0.mlp/output", "layers.0.mlp/router_logits",
              "layers.0.mlp.router", "layers.0.mlp.experts.down")
 
@@ -651,15 +752,16 @@ def model_check(model, batch, eps):
 
 
 def check_trace_shapes(res, cfg, batch_size, seq, taps_per_layer=5,
-                       params_per_layer=7):
+                       params_per_layer=7, frontend_params=0):
     """Tensors per section, ``final_norm_out``'s shape, every leaf finite.
     A hybrid's shared block counts its taps once per use and its
-    parameters once (``*_per_layer`` are then the Mamba2 layers')."""
+    parameters once (``*_per_layer`` are then the Mamba2 layers');
+    ``frontend_params`` are a VLM's or an audio model's own."""
     from repro_torch.models.model import build_plan
     L, d = cfg.n_layers, cfg.d_model
     uses = sum(seg.shared for seg in build_plan(cfg))
     n_params = (2 + params_per_layer * L + (0 if cfg.tie_embeddings else 1)
-                + (SHARED_PARAMS if uses else 0))
+                + (SHARED_PARAMS if uses else 0) + frontend_params)
     n_taps = taps_per_layer * L + 2 + SHARED_TAPS * uses
     want = {"activations": n_taps, "act_grads": n_taps,
             "param_grads": n_params, "main_grads": n_params,
@@ -1122,6 +1224,7 @@ def check_flash_kernel(device):
 
     cases = [(shape, torch.bfloat16, "causal", 0)
              for shape in FLASH_BF16_SHAPES]
+    cases += [(shape, torch.bfloat16, mode, 0) for shape, mode in FLASH_PATHS]
     cases += [(shape, dtype, mode, window)
               for dtype in (torch.bfloat16, torch.float32)
               for shape in FLASH_SWEEP_SHAPES for mode, window in FLASH_MODES]
@@ -1345,12 +1448,13 @@ def flash_control(cfg, model, batch):
     return loc
 
 
-def flash_bound(B, S, H, Hkv, D, elem_bytes=2):
-    """(bound ms, bound_by, bytes, flops) of causal attention: q, k, v and
-    out read or written once; 4 D flops per unmasked (q, k) pair on the
-    bf16 tensor cores."""
+def flash_bound(B, S, H, Hkv, D, elem_bytes=2, mode="causal"):
+    """(bound ms, bound_by, bytes, flops) of causal (or bidirectional)
+    attention: q, k, v and out read or written once; 4 D flops per unmasked
+    (q, k) pair on the bf16 tensor cores, D the true head dim."""
     nbytes = elem_bytes * B * S * D * (2 * H + 2 * Hkv)
-    flops = 4 * D * B * H * S * (S + 1) // 2
+    pairs = S * S if mode == "bidirectional" else S * (S + 1) // 2
+    flops = 4 * D * B * H * pairs
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / BF16_FLOPS * 1e3
     return (max(bytes_ms, ops_ms),
@@ -1398,9 +1502,10 @@ def ptxas_summary(source):
     return out
 
 
-def sdpa_backends_ms(q, k, v, want):
-    """``scaled_dot_product_attention`` on (B,H,S,D) views, causal, under
-    each of its CUDA backends, with deterministic algorithms off while it
+def sdpa_backends_ms(q, k, v, want, causal=True):
+    """``scaled_dot_product_attention`` on (B,H,S,D) views, causal (or
+    bidirectional), under each of its CUDA backends, with deterministic
+    algorithms off while it
     runs (the script's deterministic mode narrows SDPA's choice): ms per
     call (``device_time_ms``), or None for a backend that refuses or
     disagrees with ``want`` (bf16, (B,S,H,D)) by more than 0.05."""
@@ -1420,7 +1525,7 @@ def sdpa_backends_ms(q, k, v, want):
                 with sdpa_kernel(backend):
                     return F.scaled_dot_product_attention(
                         q.transpose(1, 2), k.transpose(1, 2),
-                        v.transpose(1, 2), is_causal=True, enable_gqa=gqa)
+                        v.transpose(1, 2), is_causal=causal, enable_gqa=gqa)
             out[name.lower()] = None
             try:
                 err = float((call().transpose(1, 2).double()
@@ -1438,10 +1543,14 @@ def sdpa_backends_ms(q, k, v, want):
 
 
 def flash_timing(device):
-    """Per launch, bf16 causal: the kernel, its plain version and
+    """Per launch, bf16: the kernel, its plain version and
     ``scaled_dot_product_attention`` on (B,H,S,D) views as the library
-    yardstick (timed here only; the port never calls it), the kernel's
-    builds and one profiled launch a shape."""
+    yardstick (timed here only; the port never calls it), causal at the
+    main and long shapes and at 25a's, bidirectional at 25d's; the kernel's
+    builds and one profiled launch a shape.  Executed TFLOP/s count the
+    kernel's own work: q k^T at the true D, p v as p_hi v + p_lo v at D
+    rounded up to whole 64-column boxes."""
+    import re
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import build, ops
@@ -1451,27 +1560,30 @@ def flash_timing(device):
     launches = ops.flash_attention.launches
     smem = build.load("flash_attention_wgmma").repro_flash_attention_wgmma_smem
     builds = {name: dict(info, dynamic_smem_bytes=smem(
-        64 if "ILi64E" in name else 128))
+        int(re.search(r"ILi(\d+)E", name)[1])))
         for name, info in ptxas_summary("flash_attention_wgmma").items()}
     for name, info in builds.items():
         log(f"flash_attention_wgmma build {name}: {json.dumps(info)}")
     rows = []
-    for shape in (FLASH_MAIN, FLASH_LONG):
+    for shape, mode in ((FLASH_MAIN, "causal"), (FLASH_LONG, "causal"),
+                        *FLASH_PATHS):
+        causal = mode == "causal"
         q, k, v = flash_inputs(*shape, torch.bfloat16, device, seed=0)
-        ms = device_time_ms(lambda: ops.flash_attention(q, k, v))
-        wrapper_ms = cuda_time_ms(lambda: ops.flash_attention(q, k, v))
-        plain_ms = cuda_time_ms(lambda: flash_attention_ref(q, k, v), reps=5,
-                                warmup=1)
+        ms = device_time_ms(lambda: ops.flash_attention(q, k, v, mode=mode))
+        wrapper_ms = cuda_time_ms(lambda: ops.flash_attention(q, k, v,
+                                                              mode=mode))
+        plain_ms = cuda_time_ms(lambda: flash_attention_ref(q, k, v,
+                                                            mode=mode),
+                                reps=5, warmup=1)
+        got = ops.flash_attention(q, k, v, mode=mode)
 
         def library():
             return F.scaled_dot_product_attention(
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                is_causal=True, enable_gqa=True).transpose(1, 2)
+                is_causal=causal, enable_gqa=True).transpose(1, 2)
         lib_ms = None
         try:
-            lib_err = float((library().double()
-                             - ops.flash_attention(q, k, v).double()
-                             ).abs().max())
+            lib_err = float((library().double() - got.double()).abs().max())
         except (RuntimeError, TypeError) as e:
             log(f"scaled_dot_product_attention refused: "
                 f"{str(e).splitlines()[0][:200]}")
@@ -1481,21 +1593,23 @@ def flash_timing(device):
                     f"; no yardstick")
             else:
                 lib_ms = device_time_ms(library)
-        backends = sdpa_backends_ms(q, k, v, ops.flash_attention(q, k, v))
-        bound_ms, bound_by, nbytes, flops = flash_bound(*shape)
-        prof = TF.profile(q, k, v).double()
+        backends = sdpa_backends_ms(q, k, v, got, causal=causal)
+        bound_ms, bound_by, nbytes, flops = flash_bound(*shape, mode=mode)
+        D = shape[4]
+        executed = flops * (2 * D + 4 * (-(-D // 64) * 64)) / (4 * D)
+        prof = TF.profile(q, k, v, mode=mode).double()
         cycles = prof.mean(0).tolist()
-        rows.append(dict(shape=shape, ms=ms, wrapper_ms=wrapper_ms,
-                         plain_ms=plain_ms, library_ms=lib_ms,
-                         library_backends_ms=backends,
+        rows.append(dict(shape=shape, mode=mode, ms=ms,
+                         wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+                         library_ms=lib_ms, library_backends_ms=backends,
                          bound_ms=bound_ms, bound_by=bound_by,
                          bound_share=bound_ms / ms, bytes=nbytes,
-                         flops=flops, executed_tflops=1.5 * flops / ms * 1e-9,
+                         flops=flops, executed_tflops=executed / ms * 1e-9,
                          warpgroup_cycles=cycles[-1],
                          phase_share={n: c / cycles[-1] for n, c in
                                       zip(TF.PHASES[:-1], cycles)}))
-        log(f"flash_attention {shape}: " + json.dumps(rows[-1]))
-        del q, k, v
+        log(f"flash_attention {shape} {mode}: " + json.dumps(rows[-1]))
+        del q, k, v, got
     ops.flash_attention.launches = launches   # timing launches are not counted
     return rows, builds
 
@@ -1505,14 +1619,15 @@ def flash_timing(device):
 # ranks) of the same model and batch
 # ---------------------------------------------------------------------------
 
-def dist_check(cfg, model, batch, kw, bugs=(), routing=None):
+def dist_check(cfg, model, batch, kw, bugs=(), routing=None,
+               cand_params=None):
     """``ttrace_check`` of ``parallel.api.make_candidate_runner`` (over
-    ``model``'s parameters) against the plain ``model`` under bf16
-    thresholds, every launch count set to 0 just before and read just
-    after.  With ``routing`` (a dict), each reference and candidate run's
-    MoE routing is appended to ``routing["reference"]`` and
-    ``routing["candidate"]`` (``moe_routing``).  Returns (result, stats,
-    the candidate runner)."""
+    ``cand_params``, default ``model``'s parameters) against the plain
+    ``model`` under bf16 thresholds, every launch count set to 0 just
+    before and read just after.  With ``routing`` (a dict), each
+    reference and candidate run's MoE routing is appended to
+    ``routing["reference"]`` and ``routing["candidate"]``
+    (``moe_routing``).  Returns (result, stats, the candidate runner)."""
     import torch
     from repro_torch.core.harness import make_model_runner, ttrace_check
     from repro_torch.core.thresholds import MACHINE_EPS
@@ -1525,8 +1640,9 @@ def dist_check(cfg, model, batch, kw, bugs=(), routing=None):
     dev = model.device
     ref_calls, cand_calls, marks = [], [], {}
     ref = timed_runner(make_model_runner(model, opt, device=dev), ref_calls)
-    cand_run = timed_runner(make_candidate_runner(cfg, pcfg, model, opt,
-                                                  device=dev), cand_calls)
+    cand_run = timed_runner(make_candidate_runner(
+        cfg, pcfg, model if cand_params is None else cand_params, opt,
+        device=dev), cand_calls)
     if routing is not None:
         ref = routing_runner(ref, cfg, routing.setdefault("reference", []))
         cand_run = routing_runner(cand_run, cfg,
@@ -2660,9 +2776,10 @@ def reference_step(cfg, model, batch):
                peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30,
                section_gb=sections)
     del tr
+    shapes = {k: tuple(v.shape) for k, v in batch.items()}
     log(f"reference step ({cfg.name}, {cfg.n_layers} layer(s), tied "
-        f"{cfg.tie_embeddings}, {n_params} parameters, batch "
-        f"{tuple(batch['tokens'].shape)}): " + json.dumps(out))
+        f"{cfg.tie_embeddings}, {n_params} parameters, batch {shapes}): "
+        + json.dumps(out))
     return out
 
 
@@ -2796,6 +2913,25 @@ def moe_control(cfg, model, batch, clean):
     return out
 
 
+@contextlib.contextmanager
+def kernel_attention_calls():
+    """The (mode, window, D, dtype) of each attention the models send to
+    the flash kernel (``use_kernel``) while the context is open."""
+    from repro_torch.models import attention as A
+    calls, saved = [], A.attention
+
+    def attention(q, k, v, mode="causal", window=0, **kw):
+        if kw.get("use_kernel"):
+            calls.append((mode, window, q.shape[-1],
+                          str(q.dtype).split(".")[-1]))
+        return saved(q, k, v, mode=mode, window=window, **kw)
+    A.attention = attention
+    try:
+        yield calls
+    finally:
+        A.attention = saved
+
+
 def moe_flash(cfg, model, B, S):
     """22c: the flash candidate (``loss(use_kernel=True)``) at S 8192,
     where the swa window of 4096 drops keys, must PASS against the plain
@@ -2805,24 +2941,20 @@ def moe_flash(cfg, model, B, S):
     from repro_torch.data.synthetic import make_batch
     from repro_torch.models import attention as A
     calls = {"attention_blockwise": 0}
-    modes = []
-    saved_attention, saved_blockwise = A.attention, A.attention_blockwise
-
-    def attention(q, k, v, mode="causal", window=0, **kw):
-        if kw.get("use_kernel"):
-            modes.append((mode, window))
-        return saved_attention(q, k, v, mode=mode, window=window, **kw)
+    saved_blockwise = A.attention_blockwise
 
     def blockwise(*args, **kwargs):
         calls["attention_blockwise"] += 1
         return saved_blockwise(*args, **kwargs)
-    A.attention, A.attention_blockwise = attention, blockwise
+    A.attention_blockwise = blockwise
     try:
         batch = make_batch(cfg, B, S, seed=0, device=model.device)
-        res, counts, ref_runs, cand_runs = flash_check(model, batch,
-                                                       extra=calls)
+        with kernel_attention_calls() as kernel_calls:
+            res, counts, ref_runs, cand_runs = flash_check(model, batch,
+                                                           extra=calls)
     finally:
-        A.attention, A.attention_blockwise = saved_attention, saved_blockwise
+        A.attention_blockwise = saved_blockwise
+    modes = [(mode, window) for mode, window, _, _ in kernel_calls]
     ratio, where = worst_record(res)
     log(res.summary())
     log(f"moe_flash: launches {counts}; per reference run {ref_runs}; per "
@@ -3364,22 +3496,18 @@ def zamba_config():
     return dataclasses.replace(get_config(ZAMBA_ARCH), n_layers=ZAMBA_LAYERS)
 
 
-def zamba_check(model, batch, bad=None):
-    """``ttrace_check`` under bf16 thresholds of the gla_scan candidate
-    (``bad``: that parameter doubled in it) against the plain ``model``;
-    every launch count set to 0 just before and read just after.  Returns
-    (result, stats)."""
+def candidate_check(model, batch, cand_run, label):
+    """``ttrace_check`` under bf16 thresholds of ``cand_run`` against the
+    plain ``model``; every launch count set to 0 just before and read just
+    after, and each run's launches recorded.  Returns (result, stats)."""
     import torch
     from repro_torch.core.harness import make_model_runner, ttrace_check
     from repro_torch.core.thresholds import MACHINE_EPS
     from repro_torch.optim.adamw import AdamW
     dev = model.device
-    opt = AdamW(lr=1e-3)
     ref_runs, cand_runs, marks = [], [], {}
-    ref = counted_runner(make_model_runner(model, opt, device=dev), ref_runs)
-    cand_run = gla_runner(model, opt)
-    if bad is not None:
-        cand_run = doubled(model, bad)(cand_run)
+    ref = counted_runner(make_model_runner(model, AdamW(lr=1e-3), device=dev),
+                         ref_runs)
     cand_run = counted_runner(cand_run, cand_runs)
 
     def cand(batch, rewrites=None):
@@ -3399,29 +3527,45 @@ def zamba_check(model, batch, bad=None):
                  localized=res.localized_module,
                  peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30)
     log(res.summary())
-    log(f"zamba2 check{'' if bad is None else f' (doubled {bad})'}: "
-        + json.dumps(stats))
+    log(f"{label}: " + json.dumps(stats))
     return res, stats
 
 
-def zamba_launches(stats, runs):
-    """Each candidate run ``ZAMBA_LAUNCHES_PER_RUN`` gla_scan launches and
-    the reference none; rel-err launches 5 in the estimate and ``runs - 1
-    + 1`` after it (the compare, and one a localization)."""
-    got = [r["gla_scan"] for r in stats["cand_runs"]]
-    if got != [ZAMBA_LAUNCHES_PER_RUN] * runs:
-        raise AssertionError(f"gla_scan launches per candidate run {got}, "
-                             f"expected {ZAMBA_LAUNCHES_PER_RUN} x {runs}")
-    if any(r["gla_scan"] for r in stats["ref_runs"]):
-        raise AssertionError("the reference launched gla_scan")
+def zamba_check(model, batch, bad=None):
+    """``candidate_check`` of the gla_scan candidate (``bad``: that
+    parameter doubled in it).  Returns (result, stats)."""
+    from repro_torch.optim.adamw import AdamW
+    cand_run = gla_runner(model, AdamW(lr=1e-3))
+    if bad is not None:
+        cand_run = doubled(model, bad)(cand_run)
+    return candidate_check(model, batch, cand_run, "zamba2 check" + (
+        "" if bad is None else f" (doubled {bad})"))
+
+
+def kernel_launches(stats, kernel, per_run, runs):
+    """Each candidate run ``per_run`` launches of ``kernel`` and the
+    reference none; rel-err launches 5 in the estimate and ``runs - 1 +
+    1`` after it (the compare, and one a localization); no other kernel."""
+    got = [r[kernel] for r in stats["cand_runs"]]
+    if got != [per_run] * runs:
+        raise AssertionError(f"{kernel} launches per candidate run {got}, "
+                             f"expected {per_run} x {runs}")
+    if any(r[kernel] for r in stats["ref_runs"]):
+        raise AssertionError(f"the reference launched {kernel}")
     rel = (stats["estimate_launches"], stats["after_estimate_launches"])
     if rel != (5, runs):
         raise AssertionError(f"packed_sq_norms launches {rel}, expected "
                              f"(5, {runs})")
     other = {k: v for k, v in stats["counts"].items()
-             if k not in ("packed_sq_norms", "gla_scan") and v}
+             if k not in ("packed_sq_norms", kernel) and v}
     if other:
         raise AssertionError(f"other kernels launched: {other}")
+
+
+def zamba_launches(stats, runs):
+    """``ZAMBA_LAUNCHES_PER_RUN`` gla_scan launches per candidate run
+    (``kernel_launches``)."""
+    kernel_launches(stats, "gla_scan", ZAMBA_LAUNCHES_PER_RUN, runs)
 
 
 def zamba_main(cfg, model, batch, B, S):
@@ -3489,6 +3633,211 @@ def zamba_phases(device, phase):
     torch.cuda.empty_cache()
     out["zamba_serve"] = phase("zamba_serve", lambda: serve_cli(
         ((ZAMBA_ARCH, True),)))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phases 25a-25e: the remaining dense options and the frontends —
+# full-width qwen3-32b (qk_norm, D 80), codeqwen1.5-7b (qkv_bias) through
+# the distributed candidate, llava-next-34b (the VLM frontend) and
+# hubert-xlarge (the audio encoder, bidirectional, D 80, full depth)
+# ---------------------------------------------------------------------------
+
+def dense_model(spec, device):
+    """(config, model) of ``spec`` = (arch, depth, tied) at the published
+    width, seed 0."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.model import Model
+    arch, layers, tied = spec
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers,
+                              tie_embeddings=tied)
+    t0 = time.perf_counter()
+    model = Model(cfg, seed=0, device=device)
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"dense model {arch}: {layers} layer(s), tied {tied}, d {cfg.d_model}"
+        f", {cfg.n_heads} heads of {cfg.d_head}, kv {cfg.n_kv_heads}, "
+        f"{n_params} parameters, built in {time.perf_counter() - t0:.2f} s")
+    return cfg, model
+
+
+def dense_flash(cfg, model, batch, B, S, params_per_layer, frontend_params=0,
+                bad=None):
+    """25a, 25c, 25d: the flash candidate must PASS, one launch a layer per
+    candidate run and none in the reference, every kernel call bf16 at the
+    config's D in its mode (causal, or bidirectional for an encoder), 5 + 1
+    rel-err launches and no other kernel.  ``bad`` = (parameter, module):
+    that parameter doubled in the candidate must FAIL at ``module``."""
+    from repro_torch.optim.adamw import AdamW
+    cand_run = flash_runner(model, AdamW(lr=1e-3))
+    label = f"{cfg.name} flash check"
+    if bad is not None:
+        cand_run = doubled(model, bad[0])(cand_run)
+        label += f" (doubled {bad[0]})"
+    with kernel_attention_calls() as calls:
+        res, stats = candidate_check(model, batch, cand_run, label)
+    stats["kernel_calls"] = sorted(set(calls))
+    mode = "causal" if cfg.causal else "bidirectional"
+    if bad is None and not res.passed:
+        raise AssertionError(f"clean {cfg.name} flash check did not PASS")
+    if bad is not None and (res.passed or res.localized_module != bad[1]):
+        raise AssertionError(f"doubled {bad[0]}: passed={res.passed}, "
+                             f"localized {res.localized_module!r}, expected "
+                             f"{bad[1]!r}")
+    emb = next(r for r in res.report.records
+               if (r.kind, r.name) == ("activation", "embedding/output"))
+    stats["embedding_output"] = dict(rel_err=emb.rel_err,
+                                     threshold=emb.threshold,
+                                     flagged=emb.flagged)
+    log(f"{label}: embedding/output {json.dumps(stats['embedding_output'])}")
+    if stats["kernel_calls"] != [(mode, 0, cfg.d_head, "bfloat16")]:
+        raise AssertionError(f"kernel calls {stats['kernel_calls']}, "
+                             f"expected bf16 {mode} at D {cfg.d_head}")
+    kernel_launches(stats, "flash_attention", cfg.n_layers,
+                    1 if bad is None else 2)
+    check_trace_shapes(res, cfg, B, S, params_per_layer=params_per_layer,
+                       frontend_params=frontend_params)
+    return stats
+
+
+def codeqwen_dist(cfg, model, batch, B, S):
+    """25b: the tp2 sp candidate (2 emulated ranks; the QKV bias split with
+    its fused columns) must PASS with no kernel but the rel-err one, and a
+    second candidate run must give a bit-identical trace."""
+    import torch
+    res, stats, cand_run = dist_check(cfg, model, batch, CODEQWEN_PCFG)
+    dist_verdict("codeqwen_dist", res, stats, cfg, B, S,
+                 params_per_layer=CODEQWEN_PARAMS_PER_LAYER)
+    first = res.candidate
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    diffs = bit_identical(first, cand_run(batch))
+    if diffs:
+        raise AssertionError(f"two candidate runs differ in {len(diffs)} "
+                             f"tensors, first {diffs[:5]}")
+    log("codeqwen_dist: a second candidate run is bit-identical in every "
+        "section")
+    return stats
+
+
+def codeqwen_control(cfg, model, batch):
+    """25b: the candidate's ``CODEQWEN_CONTROL`` bias shifted by
+    ``CODEQWEN_SHIFT`` (a new tensor: the reference's stays) must FAIL and
+    be localized to its module."""
+    from repro_torch.core.collector import named_params
+    name, module = CODEQWEN_CONTROL
+    params = named_params(model)
+    params[name] = params[name].detach() + CODEQWEN_SHIFT
+    res, stats, _ = dist_check(cfg, model, batch, CODEQWEN_PCFG,
+                               cand_params=params)
+    if res.passed or res.localized_module != module:
+        raise AssertionError(f"{name} + {CODEQWEN_SHIFT}: passed="
+                             f"{res.passed}, localized "
+                             f"{res.localized_module!r}, expected {module!r}")
+    return dict(stats, localized=res.localized_module)
+
+
+def dense_cli():
+    """25e: the serve CLI decodes reduced qwen3-32b and codeqwen1.5-7b
+    and refuses reduced hubert-xlarge as encoder-only; ``list_configs``
+    names all eleven configs."""
+    from repro_torch.configs.base import list_configs
+    out = serve_cli(DENSE_SERVE)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    argv = ["--arch", HUBERT[0], "--reduced", "--device", "cuda"]
+    cli = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", *argv],
+        capture_output=True, text=True, timeout=300, env=env, cwd=ROOT)
+    log(f"--- serve {' '.join(argv)}: rc {cli.returncode}: "
+        f"{cli.stderr.strip()[-300:]}")
+    if cli.returncode == 0 or "encoder-only" not in cli.stderr:
+        raise AssertionError(f"serve {HUBERT[0]} was not refused as "
+                             f"encoder-only: rc {cli.returncode}")
+    names = list_configs()
+    want = {"gpt-paper", "tinyllama-1.1b", "mixtral-8x7b", "deepseek-v2-236b",
+            "rwkv6-7b", "zamba2-7b", "qwen3-32b", "codeqwen1.5-7b",
+            "qwen1.5-110b", "llava-next-34b", "hubert-xlarge"}
+    if set(names) != want or len(names) != 11:
+        raise AssertionError(f"list_configs() gives {names}")
+    log(f"list_configs(): {names}")
+    return dict(out, refused=cli.returncode, configs=names)
+
+
+def dense_phases(device, phase):
+    """Phases 25a-25e, each model freed before the next is built."""
+    import torch
+    from repro_torch.data.synthetic import make_batch
+
+    def fresh():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    out = {}
+    cfg, model = dense_model(QWEN3, device)
+    B, S = QWEN3_BATCH
+    batch = make_batch(cfg, B, S, seed=0, device=device)
+    out["qwen3_main"] = phase("qwen3_main", lambda: dense_flash(
+        cfg, model, batch, B, S, QWEN3_PARAMS_PER_LAYER))
+    fresh()
+    out["qwen3_control"] = phase("qwen3_control", lambda: dense_flash(
+        cfg, model, batch, B, S, QWEN3_PARAMS_PER_LAYER, bad=QWEN3_CONTROL))
+    del model, batch
+    fresh()
+
+    cfg, model = dense_model(CODEQWEN, device)
+    B, S = CODEQWEN_BATCH
+    batch = make_batch(cfg, B, S, seed=0, device=device)
+    out["codeqwen_dist"] = phase("codeqwen_dist", lambda: codeqwen_dist(
+        cfg, model, batch, B, S))
+    fresh()
+    out["codeqwen_control"] = phase("codeqwen_control", lambda:
+                                    codeqwen_control(cfg, model, batch))
+    del model, batch
+    fresh()
+
+    cfg, model = dense_model(LLAVA, device)
+    B, S = LLAVA_BATCH
+    batch = make_batch(cfg, B, S, seed=0, device=device)
+    log("llava batch: "
+        + json.dumps({k: list(v.shape) for k, v in batch.items()}))
+    out["llava_main"] = phase("llava_main", lambda: dense_flash(
+        cfg, model, batch, B, S, LLAVA_PARAMS_PER_LAYER,
+        LLAVA_FRONTEND_PARAMS))
+    fresh()
+    out["llava_control"] = phase("llava_control", lambda: dense_flash(
+        cfg, model, batch, B, S, LLAVA_PARAMS_PER_LAYER,
+        LLAVA_FRONTEND_PARAMS, bad=LLAVA_CONTROL))
+    del model, batch
+    fresh()
+
+    cfg, model = dense_model(HUBERT, device)
+    B, S = HUBERT_BATCH
+    batch = make_batch(cfg, B, S, seed=0, device=device)
+    log(f"hubert: the plain reference's score tensor B H S^2 x 4 = "
+        f"{B * cfg.n_heads * S * S * 4 / 1e6:.1f} MB a layer, "
+        f"{cfg.n_layers} layers; {int(batch['mask'].sum())} of {B * S} "
+        f"frames masked")
+    out["hubert_main"] = phase("hubert_main", lambda: dense_flash(
+        cfg, model, batch, B, S, HUBERT_PARAMS_PER_LAYER,
+        HUBERT_FRONTEND_PARAMS))
+    fresh()
+    out["hubert_control_mlp"] = phase(
+        "hubert_control_mlp", lambda: dense_flash(
+            cfg, model, batch, B, S, HUBERT_PARAMS_PER_LAYER,
+            HUBERT_FRONTEND_PARAMS, bad=HUBERT_CONTROLS[0]))
+    fresh()
+
+    def mask_control():
+        stats = dense_flash(cfg, model, batch, B, S, HUBERT_PARAMS_PER_LAYER,
+                            HUBERT_FRONTEND_PARAMS, bad=HUBERT_CONTROLS[1])
+        if stats["embedding_output"]["flagged"]:
+            raise AssertionError("embedding/output flagged, yet the check "
+                                 "named another module")
+        return stats
+    out["hubert_control_mask"] = phase("hubert_control_mask", mask_control)
+    del model, batch
+    fresh()
+    out["dense_cli"] = phase("dense_cli", dense_cli)
     return out
 
 
@@ -3625,7 +3974,8 @@ def main() -> int:
         if flash_timed is not None:
             flash_timed = flash_timed[0]
             for row in flash_timed:
-                log(f"flash_attention {row['shape']} bf16 causal on {card}: "
+                log(f"flash_attention {row['shape']} bf16 {row['mode']} on "
+                    f"{card}: "
                     f"kernel {row['ms']:.4f} ms ({row['executed_tflops']:.1f} "
                     f"TFLOP/s executed, {row['bound_share']:.3f} of the "
                     f"bound), wrapper back-to-back {row['wrapper_ms']:.4f} ms,"
@@ -3676,13 +4026,16 @@ def main() -> int:
     # the Mixtral phases need most of the card: every earlier model is gone
     gc.collect()
     torch.cuda.empty_cache()
-    moe_phases(dev, phase)
+    moe = moe_phases(dev, phase)
     gc.collect()
     torch.cuda.empty_cache()
     mla_phases(dev, phase)
     gc.collect()
     torch.cuda.empty_cache()
     zamba = zamba_phases(dev, phase)
+    gc.collect()
+    torch.cuda.empty_cache()
+    dense = dense_phases(dev, phase)
     if failures:
         log(f"FAILED phases: {failures}")
         return 1
@@ -3702,9 +4055,15 @@ def main() -> int:
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
     row = flash_timed[0]                 # the main path's shape
+    flash_by_path = {"gpt-paper": flash["launches"],
+                     MOE_ARCH: moe["moe_flash"]["launches"]}
+    for spec, key in ((QWEN3, "qwen3_main"), (LLAVA, "llava_main"),
+                      (HUBERT, "hubert_main")):
+        flash_by_path[spec[0]] = dense[key]["counts"]["flash_attention"]
     kernels.append({
         "name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
-        "replaces": FLASH_REPLACES, "launches": flash["launches"],
+        "replaces": FLASH_REPLACES, "launches": sum(flash_by_path.values()),
+        "launches_by_path": flash_by_path,
         "max_abs_err": flash_err, "ms": row["ms"],
         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
         "bound_by": row["bound_by"], "library_ms": row["library_ms"]})

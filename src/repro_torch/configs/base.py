@@ -1,17 +1,35 @@
-"""Architecture configuration: the dense, MoE, MLA, SSM and hybrid subset
-of ``repro/configs/base.py``.
+"""Architecture and input-shape configuration: the port of
+``repro/configs/base.py``.
 
-The port carries only the fields the dense decoder, MoE, MLA, RWKV-6,
-Mamba2 and zamba2-hybrid paths read (``MoEConfig``, ``MLAConfig``,
-``SSMConfig`` and ``HybridConfig`` are copied whole); the frontend fields
-arrive with the slice that ports those models.  ``reduced()`` gives the
-same CPU-smoke variant as the reference.
+``InputShape``, ``INPUT_SHAPES``, ``MoEConfig``, ``MLAConfig``,
+``SSMConfig`` and ``HybridConfig`` are copied whole; ``ArchConfig`` has
+every field of the reference's but its TPU lowering switches
+(``scan_layers``, ``remat``, ``remat_policy``), which nothing in the port
+reads.  ``reduced()`` gives the same CPU-smoke variant as the reference,
+``supports_shape`` the same verdicts, and ``list_configs`` the same eleven
+names.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
 from typing import Optional
+
+
+@dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}
 
 
 @dataclass(frozen=True)
@@ -57,7 +75,7 @@ class HybridConfig:
 @dataclass(frozen=True)
 class ArchConfig:
     name: str
-    arch_type: str              # dense | moe | ssm | hybrid (ported so far)
+    arch_type: str              # dense | moe | ssm | hybrid | vlm | audio
     n_layers: int
     d_model: int
     n_heads: int
@@ -70,8 +88,10 @@ class ArchConfig:
     # attention flavour
     attn: str = "full"          # full | swa | mla | none (ssm)
     window: int = 0             # sliding-window size when attn == "swa"
+    qk_norm: bool = False
+    qkv_bias: bool = False
     rope_theta: float = 10_000.0
-    causal: bool = True
+    causal: bool = True         # False => encoder-only (hubert)
 
     tie_embeddings: bool = False
 
@@ -79,6 +99,11 @@ class ArchConfig:
     mla: Optional[MLAConfig] = None
     ssm: Optional[SSMConfig] = None
     hybrid: Optional[HybridConfig] = None
+
+    # modality frontend stubs
+    vision_dim: int = 0         # vlm: incoming patch-embedding feature dim
+    n_image_tokens: int = 0     # vlm: patch tokens per sample (anyres tiles flattened)
+    audio_dim: int = 0          # audio: incoming frame-feature dim
 
     # numerics
     param_dtype: str = "float32"
@@ -90,7 +115,20 @@ class ArchConfig:
 
     @property
     def is_decoder(self) -> bool:
-        return self.causal
+        return self.causal and self.arch_type != "audio"
+
+    def supports_shape(self, shape: InputShape) -> tuple[bool, str]:
+        """Whether (self, shape) is a live pair; returns (ok, reason-if-skip)."""
+        if shape.kind == "decode" and not self.is_decoder:
+            return False, "encoder-only architecture has no decode step"
+        if shape.name == "long_500k":
+            sub_quadratic = (
+                self.arch_type in ("ssm", "hybrid")
+                or self.attn == "swa"
+            )
+            if not sub_quadratic:
+                return False, "pure full-attention arch; 512k decode needs sub-quadratic attention"
+        return True, ""
 
     def reduced(self) -> "ArchConfig":
         """CPU smoke variant of the same family: 2 layers, d_model<=256,
@@ -129,6 +167,10 @@ class ArchConfig:
             d_ff=min(self.d_ff, 512),
             vocab=min(self.vocab, 512),
             window=min(self.window, 64) if self.window else 0,
+            vision_dim=min(self.vision_dim, 64) if self.vision_dim else 0,
+            n_image_tokens=(min(self.n_image_tokens, 16)
+                            if self.n_image_tokens else 0),
+            audio_dim=min(self.audio_dim, 64) if self.audio_dim else 0,
             compute_dtype="float32",
             param_dtype="float32",
             **kw,
@@ -145,12 +187,22 @@ def register(cfg: ArchConfig) -> ArchConfig:
     return cfg
 
 
-def get_config(name: str) -> ArchConfig:
+def _ensure_loaded():
     # importing each per-arch module registers it
     from repro_torch.configs import (  # noqa: F401
-        deepseek_v2_236b, gpt_paper, mixtral_8x7b, rwkv6_7b, tinyllama_11b,
-        zamba2_7b)
+        codeqwen15_7b, deepseek_v2_236b, gpt_paper, hubert_xlarge,
+        llava_next_34b, mixtral_8x7b, qwen15_110b, qwen3_32b, rwkv6_7b,
+        tinyllama_11b, zamba2_7b)
+
+
+def get_config(name: str) -> ArchConfig:
+    _ensure_loaded()
     try:
         return _REGISTRY[name]
     except KeyError:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(_REGISTRY)}") from None
+
+
+def list_configs() -> list[str]:
+    _ensure_loaded()
+    return sorted(_REGISTRY)

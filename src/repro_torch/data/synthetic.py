@@ -1,10 +1,13 @@
-"""Deterministic synthetic token batches: the torch-native counterpart of
+"""Deterministic synthetic batches: the torch-native counterpart of
 ``repro/data/synthetic.py``.
 
-The same Zipf-ish recipe (rank ~ u^(-1/(alpha-1)), then a random
-permutation of the vocabulary), drawn from a ``torch.Generator`` seeded
-from (seed, step).  The bits differ from the reference's ``jax.random``
-ones; parity tests hand the reference's batch across instead.
+The same Zipf-ish token recipe (rank ~ u^(-1/(alpha-1)), then a random
+permutation of the vocabulary), and the same stubbed frontends: Gaussian
+frame features with a Bernoulli(0.08) mask and uniform targets for an
+audio arch, Gaussian patch features ahead of the text for a VLM.  All are
+drawn from a ``torch.Generator`` seeded from (seed, step).  The bits differ
+from the reference's ``jax.random`` ones; parity tests hand the
+reference's batch across instead.
 """
 from __future__ import annotations
 
@@ -24,16 +27,36 @@ def _tokens(gen, batch, seq, vocab):
     return perm[toks]
 
 
-def make_batch(cfg: ArchConfig, batch: int, seq: int, *, seed: int = 0,
-               step: int = 0, device="cuda") -> dict:
-    """One global batch of ``tokens`` and next-token ``labels`` (int64)."""
-    dev = resolve_device(device)
-    gen = torch.Generator().manual_seed(seed * 1_000_003 + step)
-    toks = _tokens(gen, batch, seq + 1, cfg.vocab)
+def _to(dev: torch.device, t: torch.Tensor) -> torch.Tensor:
     if dev.type == "cuda":
         # pinned and non-blocking: a training loop never waits for the copy
-        toks = toks.pin_memory().to(dev, non_blocking=True)
-    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        return t.pin_memory().to(dev, non_blocking=True)
+    return t
+
+
+def make_batch(cfg: ArchConfig, batch: int, seq: int, *, seed: int = 0,
+               step: int = 0, device="cuda") -> dict:
+    """One global batch: ``tokens`` and next-token ``labels`` (int64); for
+    an audio arch, f32 ``features`` (B, S, audio_dim), a bool ``mask`` and
+    ``labels``; for a VLM, f32 ``image_embeds`` (B, n_img, vision_dim)
+    with ``n_img = min(n_image_tokens, max(S - 16, 1))``, then S - n_img
+    text ``tokens`` and ``labels``."""
+    dev = resolve_device(device)
+    gen = torch.Generator().manual_seed(seed * 1_000_003 + step)
+    if cfg.arch_type == "audio":
+        feats = torch.randn((batch, seq, cfg.audio_dim), generator=gen)
+        mask = torch.rand((batch, seq), generator=gen) < 0.08
+        targets = torch.randint(0, cfg.vocab, (batch, seq), generator=gen)
+        return {"features": _to(dev, feats), "mask": _to(dev, mask),
+                "labels": _to(dev, targets)}
+    out = {}
+    if cfg.arch_type == "vlm":
+        n_img = min(cfg.n_image_tokens, max(seq - 16, 1))
+        out["image_embeds"] = _to(dev, torch.randn(
+            (batch, n_img, cfg.vision_dim), generator=gen))
+        seq -= n_img
+    toks = _to(dev, _tokens(gen, batch, seq + 1, cfg.vocab))
+    return {"tokens": toks[:, :-1], "labels": toks[:, 1:], **out}
 
 
 def make_decode_inputs(cfg: ArchConfig, batch: int, *, seed: int = 0,

@@ -27,8 +27,11 @@
 // (119 KB at D 128, so dynamic shared memory), and the 64 x 64
 // probabilities go through shared memory between the two products.
 // Thread (ty, tx) of a 16 x 16 grid owns rows ty + 16i and score columns
-// tx + 16j (i, j < 4), and output columns [4tx, 4tx+4) (+ 64 at D 128); a
-// row's 16 threads sit in one half-warp, so its max and sum are shuffles.
+// tx + 16j (i, j < 4), and the output columns of the float4 groups tx +
+// 16u of a row's D / 4: at D 64 columns [4tx, 4tx+4), at D 128 also those
+// + 64; at D 80 and 112 (20 and 28 groups) the second group only for tx <
+// 4 and tx < 12, the rest of the half-warp idle for it.  A row's 16
+// threads sit in one half-warp, so its max and sum are shuffles.
 // A masked entry's probability is set to 0 itself: a row whose first
 // tiles are all masked keeps l = 0 and acc = 0 rather than junk that a
 // later alpha = 0 would have to wipe, so the result does not rely on the
@@ -99,7 +102,8 @@ __device__ __forceinline__ float half_warp_sum(float x) {
 template <int D>
 __global__ void __launch_bounds__(kThreads) flash_fwd(const Params p) {
   constexpr int LD = D + kPad;
-  constexpr int NU = D / 64;       // float4 output groups per thread and row
+  constexpr int kG4 = D / 4;       // float4 groups of a row
+  constexpr int NU = (kG4 + 15) / 16;   // float4 output groups per thread
   extern __shared__ __align__(16) float smem[];
   float* qt = smem;
   float* kt = qt + kBQ * LD;
@@ -107,6 +111,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd(const Params p) {
   float* pt = vt + kBK * LD;
 
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  // the groups tx + 16u this thread owns: all NU at D 64 and 128
+  const int n_own = kG4 % 16 == 0 ? NU : (kG4 - tx + 15) / 16;
   const int bh = blockIdx.y;
   const int b = bh / p.H, h = bh % p.H, hk = h / (p.H / p.Hkv);
   // the heaviest causal q tiles first, so the last wave is short
@@ -201,6 +207,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd(const Params p) {
       for (int cc = 0; cc < 4; ++cc) {
 #pragma unroll
         for (int u = 0; u < NU; ++u) {
+          if (u >= n_own) continue;
           const float4 w = load4(vt + (c + cc) * LD + 64 * u + 4 * tx);
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
@@ -225,9 +232,10 @@ __global__ void __launch_bounds__(kThreads) flash_fwd(const Params p) {
     float* orow = og + ((static_cast<long long>(b) * p.S + r) * p.H + h) * D;
 #pragma unroll
     for (int u = 0; u < NU; ++u)
-      store4(orow + 64 * u + 4 * tx,
-             make_float4(acc[i][4 * u + 0] / den, acc[i][4 * u + 1] / den,
-                         acc[i][4 * u + 2] / den, acc[i][4 * u + 3] / den));
+      if (u < n_own)
+        store4(orow + 64 * u + 4 * tx,
+               make_float4(acc[i][4 * u + 0] / den, acc[i][4 * u + 1] / den,
+                           acc[i][4 * u + 2] / den, acc[i][4 * u + 3] / den));
   }
 }
 
@@ -246,8 +254,8 @@ int launch(const Params& p, int B, cudaStream_t st) {
 }  // namespace
 
 // f32 q (B,S,H,D), k and v (B,S,Hkv,D) with the given (b, s, h) strides
-// in elements and unit stride over D; out (B,S,H,D) contiguous.  D is 64
-// or 128 (else returns cudaErrorInvalidValue); mode 0 causal, 1 swa, 2
+// in elements and unit stride over D; out (B,S,H,D) contiguous.  D is 64,
+// 80, 112 or 128 (else returns cudaErrorInvalidValue); mode 0 causal, 1 swa, 2
 // bidirectional.  Launches on `stream` and returns cudaGetLastError() (0
 // on success).
 extern "C" int repro_flash_attention_fma(
@@ -259,6 +267,8 @@ extern "C" int repro_flash_attention_fma(
                  {vsb, vss, vsh}, mode, window, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (D == 64) return launch<64>(p, B, st);
+  if (D == 80) return launch<80>(p, B, st);
+  if (D == 112) return launch<112>(p, B, st);
   if (D == 128) return launch<128>(p, B, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

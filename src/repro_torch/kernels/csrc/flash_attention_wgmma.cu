@@ -10,7 +10,8 @@
 // probabilities) and accumulator acc in f32 over kv tiles in ascending
 // order, and out = acc / max(l, 1e-30) cast to bf16.  Query head h reads
 // kv head h / (H / Hkv): KV is never repeated.  Modes: causal (k <= q),
-// swa (k <= q and k > q - window) and bidirectional.  D is 64 or 128.
+// swa (k <= q and k > q - window) and bidirectional.  D is 64, 80, 112 or
+// 128.
 //
 // Operands.  q is (B,S,H,D) and k, v are (B,S,Hkv,D), read in place by
 // TMA through 4-d tensor maps over (D, H, S, B) with their own strides (16
@@ -18,6 +19,14 @@
 // unit stride).  Rows at or past S come back as zeros from TMA's
 // out-of-bounds fill, and the mask excludes them in every mode.  out is
 // (B,S,H,D) contiguous.
+//
+// D off a multiple of 64 (80, 112).  Shared memory holds ceil(D / 64)
+// boxes of 64 columns, DP = 128 at both, and the tensor maps' inner extent
+// is the true D, so TMA fills the columns past D with zeros: nothing is
+// copied or padded in device memory.  q k^T runs D / 16 k-steps, the true
+// D's work; p v runs at N = DP, its columns past D zeros that are never
+// stored.  So p v costs DP / D of its work (1.6x at D 80, 1.14x at 112),
+// and the registers and shared memory are those of D 128.
 //
 // Bound.  At the main path's shape (8 x 1024, 8 heads of 64, causal) the
 // card must move 33.5 MB of q, k, v and out, 10 us at 3.35 TB/s, and do
@@ -85,20 +94,25 @@ struct Params {
   float scale;
 };
 
-// kv rows per tile: 128 at D 64, 64 at D 128 (the registers of s and p
-// grow with it, those of acc with D)
+// the head dim as shared memory and p v hold it: whole boxes of 64 columns
 template <int D>
-constexpr int kTileK = D == 64 ? 128 : 64;
+constexpr int kPadD = (D + 63) / 64 * 64;
 
-// shared memory, in bytes from a 1024-aligned base: q as D / 64 boxes of
-// kBQ rows, then kStages tiles of k and of v, each D / 64 boxes of BK
-// rows, then the barriers
+// kv rows per tile: 128 at D 64, 64 at D 80, 112 and 128 (the registers of
+// s and p grow with it, those of acc with kPadD)
+template <int D>
+constexpr int kTileK = kPadD<D> == 64 ? 128 : 64;
+
+// shared memory, in bytes from a 1024-aligned base: q as kPadD / 64 boxes
+// of kBQ rows, then kStages tiles of k and of v, each kPadD / 64 boxes of
+// BK rows, then the barriers
 template <int D, int BK>
 struct Smem {
+  static constexpr int kBoxes = kPadD<D> / 64;
   static constexpr int kQBox = kBQ * 128;
   static constexpr int kKVBox = BK * 128;
-  static constexpr int kQBytes = D / 64 * kQBox;
-  static constexpr int kKVBytes = D / 64 * kKVBox;
+  static constexpr int kQBytes = kBoxes * kQBox;
+  static constexpr int kKVBytes = kBoxes * kKVBox;
   static constexpr int kK = kQBytes;
   static constexpr int kV = kK + kStages * kKVBytes;
   static constexpr int kBars = kV + kStages * kKVBytes;
@@ -184,6 +198,7 @@ flash_wgmma(const __grid_constant__ CUtensorMap tq,
             const __grid_constant__ CUtensorMap tk,
             const __grid_constant__ CUtensorMap tv, const Params p) {
   using L = Smem<D, BK>;
+  constexpr int DP = kPadD<D>;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint8_t* qs = smem;
@@ -223,17 +238,17 @@ flash_wgmma(const __grid_constant__ CUtensorMap tq,
                  :: "n"(kProducerRegs));
     if (warp == kConsumerWarps && lane == 0) {
       mbar_arrive_expect_tx(q_full, L::kQBytes);
-      for (int x = 0; x < D / 64; ++x)
+      for (int x = 0; x < L::kBoxes; ++x)
         tma_load_4d(qs + x * L::kQBox, &tq, q_full, 64 * x, h, q0, b);
       for (int t = t_lo, i = 0; t < t_hi; ++t, ++i) {
         const int st = i % kStages, round = i / kStages;
         if (round > 0) mbar_wait(&empty[st], (round - 1) & 1);
         mbar_arrive_expect_tx(&k_full[st], L::kKVBytes);
-        for (int x = 0; x < D / 64; ++x)
+        for (int x = 0; x < L::kBoxes; ++x)
           tma_load_4d(ks + st * L::kKVBytes + x * L::kKVBox, &tk,
                       &k_full[st], 64 * x, hk, t * BK, b);
         mbar_arrive_expect_tx(&v_full[st], L::kKVBytes);
-        for (int x = 0; x < D / 64; ++x)
+        for (int x = 0; x < L::kBoxes; ++x)
           tma_load_4d(vs + st * L::kKVBytes + x * L::kKVBox, &tv,
                       &v_full[st], 64 * x, hk, t * BK, b);
       }
@@ -253,16 +268,16 @@ flash_wgmma(const __grid_constant__ CUtensorMap tq,
     const uint8_t* qw = qs + wg * 64 * 128;
     const float c = p.scale * kLog2e;
 
-    float o[D / 2], s[BK / 2];
+    float o[DP / 2], s[BK / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
 #pragma unroll
     for (int i = 0; i < BK / 2; ++i) s[i] = 0.f;
     float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
     // p of the last tile, whose p v is not issued yet, as A fragments
     uint32_t ph[BK / 16][4], pl[BK / 16][4];
 
-    // s = q k^T of the tile in stage st
+    // s = q k^T of the tile in stage st, over the true D
     auto issue_qk = [&](int st) {
       const uint8_t* kt = ks + st * L::kKVBytes;
 #pragma unroll
@@ -273,16 +288,16 @@ flash_wgmma(const __grid_constant__ CUtensorMap tq,
             kk > 0);
       wgmma_commit();
     };
-    // acc += p_hi v + p_lo v with v in stage st
+    // acc += p_hi v + p_lo v with v in stage st, over DP columns
     auto issue_pv = [&](int st) {
       const uint8_t* vt = vs + st * L::kKVBytes;
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk)
-        wgmma_rs_mn<D>(o, ph[kk],
-                       desc_sw128(vt + kk * 2048, L::kKVBox, 1024), 1);
+        wgmma_rs_mn<DP>(o, ph[kk],
+                        desc_sw128(vt + kk * 2048, L::kKVBox, 1024), 1);
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk)
-        wgmma_rs_mn<D>(o, pl[kk],
+        wgmma_rs_mn<DP>(o, pl[kk],
                        desc_sw128(vt + kk * 2048, L::kKVBox, 1024), 1);
       wgmma_commit();
     };
@@ -379,7 +394,7 @@ flash_wgmma(const __grid_constant__ CUtensorMap tq,
       tick(kPV);
       release(p_st);
 #pragma unroll
-      for (int i2 = 0; i2 < D / 2; ++i2) o[i2] *= alpha[(i2 % 4) / 2];
+      for (int i2 = 0; i2 < DP / 2; ++i2) o[i2] *= alpha[(i2 % 4) / 2];
       pack();
       tick(kPack);
       p_st = st;
@@ -422,6 +437,7 @@ flash_wgmma(const __grid_constant__ CUtensorMap tq,
 
 // a (B,S,Hh,D) bf16 tensor with (b, s, h) strides in elements, as a
 // tensor map over (D, Hh, S, B) read in boxes of 64 columns x `rows` rows
+// (a box's columns at or past D read as zeros)
 bool tensor_map(CUtensorMap* map, const void* base, int B, int S, int Hh,
                 int D, long long sb, long long ss, long long sh, int rows) {
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
@@ -465,6 +481,10 @@ int run(const void* q, const void* k, const void* v, void* out,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (D == 64)
     return launch<64, kTileK<64>, kProf>(q, k, v, p, B, qs, ks, vs, st);
+  if (D == 80)
+    return launch<80, kTileK<80>, kProf>(q, k, v, p, B, qs, ks, vs, st);
+  if (D == 112)
+    return launch<112, kTileK<112>, kProf>(q, k, v, p, B, qs, ks, vs, st);
   if (D == 128)
     return launch<128, kTileK<128>, kProf>(q, k, v, p, B, qs, ks, vs, st);
   return static_cast<int>(cudaErrorInvalidValue);
@@ -474,7 +494,8 @@ int run(const void* q, const void* k, const void* v, void* out,
 
 // bf16 q (B,S,H,D), k and v (B,S,Hkv,D) with the given (b, s, h) strides
 // in elements (multiples of 8), unit stride over D and 16-byte aligned
-// bases; out (B,S,H,D) contiguous.  D is 64 or 128; mode 0 causal, 1 swa,
+// bases; out (B,S,H,D) contiguous.  D is 64, 80, 112 or 128; mode 0
+// causal, 1 swa,
 // 2 bidirectional.  Launches on `stream` and returns cudaGetLastError() (0
 // on success), or cudaErrorInvalidValue for another D or a tensor map
 // cuTensorMapEncodeTiled refuses.
@@ -508,6 +529,8 @@ extern "C" int repro_flash_attention_wgmma_profile(
 // another D)
 extern "C" int repro_flash_attention_wgmma_smem(int D) {
   if (D == 64) return Smem<64, kTileK<64>>::kBytes;
+  if (D == 80) return Smem<80, kTileK<80>>::kBytes;
+  if (D == 112) return Smem<112, kTileK<112>>::kBytes;
   if (D == 128) return Smem<128, kTileK<128>>::kBytes;
   return 0;
 }

@@ -17,8 +17,10 @@ model's ``attention_ref``).  The kernel is chosen by dtype alone
 the plain version.  Both read the tensors in place through their strides:
 the head dim must have stride 1; f32 rows must start on 4-element
 boundaries, bf16 rows (for TMA) on 16-byte ones, with 16-byte aligned
-bases.  D is 64 or 128.  ``flash_attention.launches`` counts kernel
-launches.
+bases.  D is 64, 80, 112 or 128 (the reference configs' head dims: 80 in
+qwen3-32b and hubert-xlarge, 112 in zamba2-7b's shared block), read in
+place at every D, with no padded copy.  ``flash_attention.launches``
+counts kernel launches.
 
 The TPU kernel has no backward, and the reference cannot differentiate
 through it.  The backward here is not a kernel: it is the gradient of the
@@ -35,7 +37,7 @@ import torch
 from repro_torch.models.attention import attention_ref
 
 MODES = {"causal": 0, "swa": 1, "bidirectional": 2}
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 80, 112, 128)
 DTYPES = (torch.float32, torch.bfloat16)
 
 # (source in csrc/, C entry point) of the kernel for each dtype; both take

@@ -120,16 +120,22 @@ def attention(q, k, v, mode="causal", window=0, blockwise_threshold=2048,
 
 class GQAttention(nn.Module):
     """``gqa_init`` / ``_gqa_qkv`` / ``gqa_forward`` with the fused
-    ``linear_qkv`` (Megatron naming).  ``qk_norm`` and ``qkv_bias`` arrive
-    with the first ported config that sets them."""
+    ``linear_qkv`` (Megatron naming), biased when ``cfg.qkv_bias``.  With
+    ``cfg.qk_norm``, ``q_norm`` and ``k_norm`` (ones of D) RMS-normalize
+    each head's q and k after the split and before rope; an ``audio``
+    arch takes no rope."""
 
     def __init__(self, gen, cfg, dtype, out_scale=None):
         super().__init__()
         H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
         self.cfg = cfg
-        self.linear_qkv = Linear(gen, cfg.d_model, (H + 2 * Hkv) * D, dtype)
+        self.linear_qkv = Linear(gen, cfg.d_model, (H + 2 * Hkv) * D, dtype,
+                                 bias=cfg.qkv_bias)
         self.linear_proj = Linear(gen, H * D, cfg.d_model, dtype,
                                   scale=out_scale)
+        if cfg.qk_norm:
+            self.q_norm = nn.Parameter(torch.ones(D, dtype=dtype))
+            self.k_norm = nn.Parameter(torch.ones(D, dtype=dtype))
 
     def _qkv(self, x, positions):
         cfg = self.cfg
@@ -140,8 +146,12 @@ class GQAttention(nn.Module):
         q = q.reshape(B, S, H, D)
         k = k.reshape(B, S, Hkv, D)
         v = v.reshape(B, S, Hkv, D)
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+        if cfg.qk_norm:
+            q = rmsnorm(self.q_norm, q)
+            k = rmsnorm(self.k_norm, k)
+        if cfg.attn != "none" and cfg.arch_type != "audio":
+            q = apply_rope(q, positions, cfg.rope_theta)
+            k = apply_rope(k, positions, cfg.rope_theta)
         return q, k, v
 
     def forward(self, x, positions=None, ctx=None, use_kernel=False):

@@ -33,26 +33,34 @@ def linear(w, x):
 
 
 class Linear(nn.Module):
-    """``{"w": (d_in, d_out)}``, as ``layers.linear_init`` without bias."""
+    """``{"w": (d_in, d_out)}`` and, with ``bias``, ``"b": (d_out,)`` of
+    zeros, as ``layers.linear_init``.  The bias is added in x's dtype after
+    the product, as the reference's ``linear`` does (not fused into it)."""
 
-    def __init__(self, gen, d_in, d_out, dtype, scale=None):
+    def __init__(self, gen, d_in, d_out, dtype, bias=False, scale=None):
         super().__init__()
         self.w = nn.Parameter(dense_init(gen, d_in, d_out, dtype, scale))
+        self.b = (nn.Parameter(torch.zeros(d_out, dtype=dtype)) if bias
+                  else None)
+
+    def add_bias(self, y):
+        return y if self.b is None else y + self.b.to(y.dtype)
 
     def forward(self, x):
-        return linear(self.w, x)
+        return self.add_bias(linear(self.w, x))
 
 
 def _mlp_linear(precision):
     """The matmul the MLPs use, ``lin(Linear, x)``: plain, or FP8-quantized
-    per the recipe of ``precision`` (a ``precision.fp8.Precision``)."""
+    per the recipe of ``precision`` (a ``precision.fp8.Precision``), the
+    bias added after either."""
     if precision is None or not precision.fp8_recipe:
-        return lambda m, x: linear(m.w, x)
+        return lambda m, x: m(x)
     from repro_torch.precision.fp8 import fp8_linear
 
     def lin(m, x):
-        return fp8_linear(m.w, x, recipe=precision.fp8_recipe,
-                          stale_scale=precision.stale_scale)
+        return m.add_bias(fp8_linear(m.w, x, recipe=precision.fp8_recipe,
+                                     stale_scale=precision.stale_scale))
 
     return lin
 
@@ -72,6 +80,25 @@ class SwiGLUMLP(nn.Module):
         x = ctx.tap("input", x)
         h = F.silu(lin(self.gate, x)) * lin(self.up, x)
         return ctx.tap("output", lin(self.down, h))
+
+
+class GeluMLP(nn.Module):
+    """``gelu_mlp_init`` / ``gelu_mlp``: ``fc1`` and ``fc2`` with biases and
+    the tanh GELU (``jax.nn.gelu``'s default), tapping ``input`` and
+    ``output``."""
+
+    def __init__(self, gen, d_model, d_ff, dtype, out_scale=None):
+        super().__init__()
+        self.fc1 = Linear(gen, d_model, d_ff, dtype, bias=True)
+        self.fc2 = Linear(gen, d_ff, d_model, dtype, bias=True,
+                          scale=out_scale)
+
+    def forward(self, x, ctx=None, precision=None):
+        ctx = ensure_ctx(ctx)
+        lin = _mlp_linear(precision)
+        x = ctx.tap("input", x)
+        h = F.gelu(lin(self.fc1, x), approximate="tanh")
+        return ctx.tap("output", lin(self.fc2, h))
 
 
 def rope_freqs(d: int, theta: float) -> np.ndarray:

@@ -1,5 +1,6 @@
-"""Model assembly: the dense-decoder, MoE (GQA or MLA attention), RWKV-6
-and zamba2-hybrid port of ``repro/models/model.py``.
+"""Model assembly: the port of ``repro/models/model.py`` for every
+architecture of the reference: dense decoders, MoE (GQA or MLA attention),
+RWKV-6, the zamba2 hybrid, and the VLM and audio frontends.
 
 ``named_parameters()`` gives exactly the reference's
 ``collector.flatten_named(params)`` names (``embedding.word_embeddings``,
@@ -16,6 +17,12 @@ each segment's name (``{"layers": [cache of layer 0, ...]}``; each use of
 the shared block has its own, ``{"shared_attn_{g}": [cache]}``), the
 reference's layout at ``scan_layers=False``; its stacked ``scan_layers``
 caches have no counterpart, as the port's parameters are per layer too.
+
+The VLM and audio frontends are stubs, as in the reference: the batch
+carries precomputed patch embeddings (``image_embeds``) or frame features
+(``features``, with the bool ``mask`` of masked frames); ``vision_proj``,
+``audio_proj``, ``mask_embed`` and the backbone are real.  An audio model
+keeps the reference's unused ``embedding.word_embeddings``.
 """
 from __future__ import annotations
 
@@ -31,7 +38,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.tap import ensure_ctx
 from repro_torch.models.attention import (GQAttention, MLAttention,
                                           gqa_init_cache, mla_init_cache)
-from repro_torch.models.layers import (SwiGLUMLP, _logits,
+from repro_torch.models.layers import (GeluMLP, Linear, SwiGLUMLP, _logits,
                                        chunked_cross_entropy, cross_entropy,
                                        rmsnorm)
 from repro_torch.models.moe import MoE
@@ -54,11 +61,11 @@ class Segment:
 
 def build_plan(cfg: ArchConfig) -> list[Segment]:
     L = cfg.n_layers
-    if cfg.arch_type in ("dense", "moe") and cfg.attn not in ("full", "swa",
-                                                              "mla"):
+    if cfg.arch_type in ("dense", "vlm", "audio", "moe") and \
+            cfg.attn not in ("full", "swa", "mla"):
         raise NotImplementedError(
             f"{cfg.name}: attention {cfg.attn!r} is not ported yet")
-    if cfg.arch_type == "dense":
+    if cfg.arch_type in ("dense", "vlm", "audio"):
         return [Segment("layers", "attn_mlp", L, 0)] if L else []
     if cfg.arch_type == "moe":
         nd = min(cfg.moe.n_dense_layers, L)
@@ -81,10 +88,7 @@ def build_plan(cfg: ArchConfig) -> list[Segment]:
                                     shared=True))
             g += 1
         return segs
-    # the frontends are a later slice
-    raise NotImplementedError(
-        f"{cfg.name}: only dense and MoE decoders, RWKV-6 and the zamba2 "
-        f"hybrid are ported so far")
+    raise ValueError(cfg.arch_type)
 
 
 def _out_scale(cfg):  # megatron-style scaled residual-output init
@@ -95,7 +99,8 @@ class Block(nn.Module):
     """``block_init`` / ``block_apply`` for the attention kinds:
     ``attn_mlp``, ``attn_dense_mlp`` (an MoE arch's leading dense layers,
     of width ``d_ff_dense``), ``attn_moe`` and a hybrid's ``shared_attn``,
-    with GQA or (``attn == "mla"``) MLA attention.  ``forward`` gives
+    with GQA or (``attn == "mla"``) MLA attention; an ``audio`` arch's MLP
+    is ``GeluMLP``, every other dense one ``SwiGLUMLP``.  ``forward`` gives
     ``(x, aux)``; ``aux`` is the MoE load-balance loss, ``None`` for a
     dense MLP.  ``step`` is the one-token decode."""
 
@@ -110,6 +115,8 @@ class Block(nn.Module):
         self.moe = kind == "attn_moe"
         if self.moe:
             self.mlp = MoE(gen, cfg, dtype, osc)
+        elif kind != "attn_dense_mlp" and cfg.arch_type == "audio":
+            self.mlp = GeluMLP(gen, cfg.d_model, cfg.d_ff, dtype, osc)
         else:
             d_ff = ((cfg.moe.d_ff_dense or cfg.d_ff) if kind == "attn_dense_mlp"
                     else cfg.d_ff)
@@ -262,6 +269,14 @@ class Model(nn.Module):
             self.lm_head = nn.Parameter(
                 (0.02 * torch.randn(cfg.vocab, cfg.d_model, generator=gen)
                  ).to(dtype))
+        if cfg.arch_type == "vlm":
+            self.vision_proj = Linear(gen, cfg.vision_dim, cfg.d_model, dtype,
+                                      bias=True)
+        if cfg.arch_type == "audio":
+            self.audio_proj = Linear(gen, cfg.audio_dim, cfg.d_model, dtype,
+                                     bias=True)
+            self.mask_embed = nn.Parameter(
+                (0.02 * torch.randn(cfg.d_model, generator=gen)).to(dtype))
         # one ModuleList a segment, under the segment's name: an MoE arch's
         # leading dense layers are ``dense_layers.{j}``, as the reference
         # names their parameters (its taps use the global ``layers.{li}``);
@@ -290,8 +305,29 @@ class Model(nn.Module):
         return self.final_norm.device
 
     def embed(self, batch, ctx=None):
-        return embed_tokens(self.embedding.word_embeddings, batch["tokens"],
-                            self.cdtype, ctx)
+        """The ``embedding`` scope's output, tapped in the compute dtype:
+        token embeddings; an audio arch's projected ``features``, masked
+        frames blended into ``mask_embed``; a VLM's projected
+        ``image_embeds`` (when given) ahead of its token embeddings."""
+        cfg = self.cfg
+        if cfg.arch_type not in ("vlm", "audio"):
+            return embed_tokens(self.embedding.word_embeddings,
+                                batch["tokens"], self.cdtype, ctx)
+        ctx = ensure_ctx(ctx)
+        with ctx.scope("embedding"):
+            if cfg.arch_type == "audio":
+                h = self.audio_proj(batch["features"].to(self.cdtype))
+                if "mask" in batch:
+                    m = batch["mask"][..., None].to(self.cdtype)
+                    h = h * (1 - m) + self.mask_embed.to(self.cdtype) * m
+            else:
+                h = F.embedding(batch["tokens"],
+                                self.embedding.word_embeddings).to(self.cdtype)
+                if "image_embeds" in batch:
+                    img = self.vision_proj(
+                        batch["image_embeds"].to(self.cdtype))
+                    h = torch.cat([img, h], dim=1)
+            return ctx.tap("output", h)
 
     def apply_blocks(self, h, ctx=None, use_kernel=False, precision=None):
         """``(final_norm_out, aux)``: ``aux`` sums the blocks' MoE
@@ -327,13 +363,19 @@ class Model(nn.Module):
     def loss(self, batch, ctx=None, use_kernel=False, precision=None):
         """(ce + aux, {"ce", "aux"}): next-token CE, computed in sequence
         chunks of min(1024, S) when S * vocab > 2^26, as the reference,
-        plus the MoE blocks' load-balance losses."""
+        plus the MoE blocks' load-balance losses.  A VLM's CE takes the
+        text positions only (the last ``labels.shape[1]``); an audio
+        arch's is masked by the batch's ``mask``."""
         cfg = self.cfg
         h, aux = self.apply_blocks(self.embed(batch, ctx), ctx,
                                    use_kernel=use_kernel, precision=precision)
         e = (self.embedding.word_embeddings if cfg.tie_embeddings
              else self.lm_head)
         labels, mask = batch["labels"], batch.get("loss_mask")
+        if cfg.arch_type == "vlm":
+            h = h[:, -labels.shape[1]:]          # loss only on text positions
+        if cfg.arch_type == "audio":
+            mask = batch["mask"]
         if h.shape[1] * cfg.vocab > _CHUNKED_CE_ELEMS:
             ce = chunked_cross_entropy(h, e, labels, mask=mask,
                                        chunk=min(1024, h.shape[1]))

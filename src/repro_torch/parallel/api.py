@@ -392,6 +392,12 @@ class _Plumbing:
             # the reference's distributed block is tp_gqa_attention only
             raise ValueError(f"{cfg.name}: the distributed candidate has no "
                              f"MLA attention (GQA only, as the reference's)")
+        if cfg.arch_type in ("vlm", "audio"):
+            # the reference's parallel_gpt_loss embeds batch["tokens"] alone
+            raise ValueError(f"{cfg.name}: the distributed candidate takes "
+                             f"token batches only, as the reference's: a "
+                             f"{cfg.arch_type} frontend's image_embeds or "
+                             f"features have no sharded path")
         self.cfg, self.pcfg = cfg, pcfg
         self.mesh = make_mesh(pcfg, device)
         self.ann = build_annotations(cfg, pcfg)

@@ -21,7 +21,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.tap import ensure_ctx
 from repro_torch.models.attention import NEG_INF
-from repro_torch.models.layers import apply_rope
+from repro_torch.models.layers import apply_rope, rmsnorm
 
 AX_DP, AX_CP, AX_TP = "dp", "cp", "tp"
 
@@ -290,9 +290,10 @@ def cp_attention(mesh, q, k, v, q_pos, bugs=frozenset()):
 def tp_gqa_attention(mesh, p_local, cfg, x, q_pos, sp: bool,
                      bugs=frozenset(), ctx=None):
     """x: (B, S_local, d_model) — seq local under SP/CP, else full.
-    Head-parallel attention with fused column-parallel linear_qkv and
-    row-parallel linear_proj.  (``qk_norm`` arrives with the configs that
-    set it.)"""
+    Head-parallel attention with fused column-parallel linear_qkv (its
+    bias, if any, split with its columns) and row-parallel linear_proj.
+    ``q_norm`` / ``k_norm`` are replicated and normalize the local heads;
+    their gradients are summed over tp (``api._needs_tp_reduce``)."""
     ctx = ensure_ctx(ctx)
     x = ctx.tap("input", x)
     tp = axis_size(mesh, AX_TP)
@@ -307,6 +308,9 @@ def tp_gqa_attention(mesh, p_local, cfg, x, q_pos, sp: bool,
     q = q.reshape(R, B, S, H, D)
     k = k.reshape(R, B, S, Hkv, D)
     v = v.reshape(R, B, S, Hkv, D)
+    if cfg.qk_norm:
+        q = rmsnorm(mesh.rank_view(p_local["q_norm"], q.ndim), q)
+        k = rmsnorm(mesh.rank_view(p_local["k_norm"], k.ndim), k)
     pos_b = q_pos[:, None, :].expand(R, B, S)
     q = apply_rope(q, pos_b, cfg.rope_theta)
     k = apply_rope(k, pos_b, cfg.rope_theta)

@@ -7,7 +7,10 @@ Configs are ``gpt-paper`` and ``tinyllama-1.1b`` (the dense ``CONFIGS``),
 gives two chunks) and ``zamba2-7b`` (``ZAMBA``, also at ``RWKV_SEQ``), each
 ``.reduced()`` with ``n_layers=2, vocab=256``; the hybrid has
 ``ZAMBA_LAYERS`` layers instead, two shared-block uses (every 2 Mamba2
-layers) and a partial last group.
+layers) and a partial last group.  ``DENSE_OPTIONS`` are the configs of
+the remaining dense options and frontends (``qk_norm``, ``qkv_bias``, the
+VLM and the audio encoder); the VLM's batch is ``VLM_SEQ`` long, so that
+16 of its positions are image tokens and 48 text.
 """
 import dataclasses
 import functools
@@ -29,6 +32,9 @@ CONFIGS = ("gpt-paper", "tinyllama-1.1b")
 BATCH, SEQ = 2, 16
 RWKV, RWKV_SEQ = "rwkv6-7b", 64
 ZAMBA, ZAMBA_LAYERS = "zamba2-7b", 5
+DENSE_OPTIONS = ("qwen3-32b", "codeqwen1.5-7b", "qwen1.5-110b",
+                 "llava-next-34b", "hubert-xlarge")
+VLM, VLM_SEQ = "llava-next-34b", 64
 
 
 def configs(name):
@@ -38,8 +44,11 @@ def configs(name):
 
 
 @functools.lru_cache(maxsize=None)
-def jax_setup(name, seed=1, seq=SEQ):
-    """(jax cfg, jax model, jax params, numpy named params, numpy batch)."""
+def jax_setup(name, seed=1, seq=None):
+    """(jax cfg, jax model, jax params, numpy named params, numpy batch);
+    ``seq`` defaults to ``VLM_SEQ`` for the VLM, else ``SEQ``."""
+    if seq is None:
+        seq = VLM_SEQ if name == VLM else SEQ
     jcfg, _ = configs(name)
     jm = JaxModel(jcfg)
     params = jax.jit(jm.init)(jax.random.PRNGKey(seed))

@@ -35,11 +35,16 @@ REFUSED = ("jax", "jaxlib", "repro", "ml_dtypes")
 
 def test_importing_every_module_loads_no_jax_and_no_repro():
     mods = _modules()
-    assert "repro_torch.core.harness" in mods and len(mods) >= 64
+    assert "repro_torch.core.harness" in mods and len(mods) >= 69
     assert {"repro_torch.precision.fp8", "repro_torch.kernels.fp8_matmul",
             "repro_torch.bugs.registry", "repro_torch.models.ssm",
             "repro_torch.kernels.ssm_scan",
             "repro_torch.configs.rwkv6_7b", "repro_torch.configs.zamba2_7b",
+            "repro_torch.configs.qwen3_32b",
+            "repro_torch.configs.codeqwen15_7b",
+            "repro_torch.configs.qwen15_110b",
+            "repro_torch.configs.llava_next_34b",
+            "repro_torch.configs.hubert_xlarge",
             "repro_torch.checkpoint.store",
             "repro_torch.supervise", "repro_torch.supervise.runner",
             "repro_torch.supervise.pipeline", "repro_torch.supervise.store",
