@@ -7,7 +7,9 @@ Phases (every one must pass; the script exits non-zero otherwise and then
 prints no result line):
 
 1. device  — the card's name and power limit (nvidia-smi), capability 9.0;
-2. build   — ``nvcc`` builds every kernel from ``src/repro_torch/kernels/csrc``;
+2. build   — ``nvcc`` builds every kernel from ``src/repro_torch/kernels/csrc``
+             (``LATE_BUILDS``, ``ssm_scan.cu``'s minute, in a background
+             thread that phase 16's ``build_late`` joins);
 3. kernel  — ``packed_sq_norms`` on the card against its plain PyTorch
              version and a float64 reference (ragged sizes, f32 and bf16
              leaves, NaN in the pad, NaN in real data, ||a|| = 0, two
@@ -256,7 +258,8 @@ prints no result line):
              compute under bf16 eps, each implementation's ms per decode
              step, the cache's 576 values a token against per-head K/V's
              40960, the peak memory;
-23d. decode_consistency — full-width, full-depth ``tinyllama-1.1b`` at f32
+23d. decode_consistency — full-width ``tinyllama-1.1b`` cut to 11 of its
+             22 layers for time (26a trains it at full depth), at f32
              compute, B 2 x 256 tokens: the decode-stepped logits within
              1e-4 normwise of ``forward`` + ``unembed``, and
              ``make_prefill_step``'s of the last decode step's; the values
@@ -320,11 +323,11 @@ prints no result line):
              the flash candidate must PASS with 1 launch per candidate
              run; then (llava_control) ``vision_proj.w`` doubled must
              FAIL at ``embedding``;
-25d. hubert_main — ``hubert-xlarge`` at its published width and depth
-             (48 layers, d 1280, 16 heads of 80, d_ff 5120 GELU, vocab
-             504, audio_dim 512, no rope, bidirectional, bf16), B 2 x S
-             1024, the thresholds from the perturbed ``features``: the
-             flash candidate must PASS with 48 launches per candidate run
+25d. hubert_main — ``hubert-xlarge`` at its published width (d 1280, 16
+             heads of 80, d_ff 5120 GELU, vocab 504, audio_dim 512, no
+             rope, bidirectional, bf16), cut from 48 layers to 24 for time,
+             B 2 x S 1024, the thresholds from the perturbed ``features``:
+             the flash candidate must PASS with 24 launches per candidate run
              (bf16, bidirectional, D 80); then (hubert_control_mlp)
              ``layers.23.mlp.fc2.w`` doubled must FAIL at
              ``layers.23.mlp`` and (hubert_control_mask) ``mask_embed``
@@ -335,11 +338,39 @@ prints no result line):
              ``qwen3-32b`` and ``codeqwen1.5-7b`` must exit 0 and print
              their tokens per second, for ``hubert-xlarge`` exit non-zero
              as encoder-only; ``list_configs()`` names all eleven configs.
+26a. train_main (26a-26c run last) — ``launch.train.main`` in this
+             process for ``tinyllama-1.1b`` at its published width and
+             depth (22 layers, d 2048, 32 heads, kv 4, d_ff 5632, vocab
+             32000, untied, bf16; 1100048384 parameters), 8 steps at
+             B 8 x S 128 in 2 microbatches, ``--ttrace-every 4``: the
+             step-4 check must PASS with 6 rel-err launches (5 in the
+             estimate, 1 in the compare) and no other kernel, over the
+             tensors ``check_trace_shapes`` counts; all 8 losses finite;
+             no file written; prints each step's synchronized seconds,
+             the check's step seconds and the peak device memory;
+26b. train_resume — the same width at 2 layers (bf16 parameters):
+             ``make_train_step`` at 2 microbatches for 6 steps,
+             ``save_checkpoint``, ``load_checkpoint`` and 4 more must be
+             bit-identical to 10 uninterrupted steps; then ``python -m
+             repro_torch.launch.train --reduced --steps 6 --n-micro 2
+             --ttrace-every 3 --save W`` must exit 0 with its check
+             PASSing; each checkpoint's size logged, then removed;
+26c. rel_err_kernel, rel_err_timing — ``kernels.relerr.sq_norms`` and
+             ``ops.rel_err``, the kernel's single-pair layout (one segment
+             at 65536 elements a block), at n 1, 65535, 65536, 65537,
+             3000017 and 16777259, f32 and bf16 leaves: each sum within
+             relative 1e-5 of float64 and of the plain version, a zero
+             ``a`` giving ||b||, NaN in real data propagating, exactly one
+             launch a call, two launches bit-identical; then the largest
+             call per launch (the card held busy) beside the copy to f32
+             and the pad, the plain version, two ``vector_norm`` calls and
+             the bytes bound.
 
 Every kernel's launch count is set to 0 just before each path (phases 4,
 8, 12, 13, 14, 15a, 15b, 15c, 17, 18, 20a-20e, 21a-21d, 22a-22c, 23a-23c,
-24a-24c and 25a-25d) and read just after it.  The ``kernels`` line's
-``gla_scan`` launches are phase 17's and 24a's, its ``flash_attention``
+24a-24c, 25a-25d, 26a and 26c) and read just after it.  The ``kernels``
+line's ``packed_sq_norms`` launches are phase 4's, 26a's and 26c's, its
+``gla_scan`` launches phase 17's and 24a's, its ``flash_attention``
 launches phase 12's, 22c's, 25a's, 25c's and 25d's, ``launches_by_path``
 beside each.  At the end come the card's name and power
 limit, then a ``{"kernels": [...]}`` JSON object, then the last line,
@@ -347,6 +378,7 @@ limit, then a ``{"kernels": [...]}`` JSON object, then the last line,
 """
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import dataclasses
 import gc
@@ -492,6 +524,7 @@ MLA_DECODE = (4, 1024)       # B x T decode tokens of phase 23c
 DECODE_MARGIN = 64.0         # tests/test_decode_ttrace.py's margin
 STALE_ROPE = "decode_stale_rope_pos"
 CONSISTENCY = ("tinyllama-1.1b", 2, 256)    # arch, B, T of phase 23d
+CONSISTENCY_LAYERS = 11      # of 22, for time: 26a runs the full depth
 CONSISTENCY_TOL = 1e-4       # normwise relative, at f32 compute
 SERVE_RUNS = (("tinyllama-1.1b", False), ("deepseek-v2-236b", True),
               ("mixtral-8x7b", True), ("rwkv6-7b", True))
@@ -515,7 +548,8 @@ ZAMBA_DECODE = (2, 256)      # B x T of phase 24d, at f32 compute
 # phases; codeqwen1.5-7b: depth 32 -> 2 (a control on the second layer),
 # through the tp2 sp candidate; llava-next-34b: depth 60 -> 1, S 4096 =
 # 2880 patch features (5 anyres tiles x 576) + 1216 text tokens;
-# hubert-xlarge at full depth, B 2 x S 1024 (some 20 s of audio at 50
+# hubert-xlarge cut from 48 layers to 24 for the script's time (the
+# control on layer 23 stays), B 2 x S 1024 (some 20 s of audio at 50
 # frames a second)
 QWEN3 = ("qwen3-32b", 1, True)
 QWEN3_BATCH = (1, 4096)
@@ -530,7 +564,7 @@ CODEQWEN_SHIFT = 0.1
 LLAVA = ("llava-next-34b", 1, False)
 LLAVA_BATCH = (1, 4096)
 LLAVA_CONTROL = ("vision_proj.w", "embedding")
-HUBERT = ("hubert-xlarge", 48, False)
+HUBERT = ("hubert-xlarge", 24, False)
 HUBERT_BATCH = (2, 1024)
 # the doubled mask_embed moves the embedding output by less than its bf16
 # threshold's 12.5% floor (174 of 2048 frames masked), so the check FAILs
@@ -551,6 +585,11 @@ HUBERT_FRONTEND_PARAMS = 3   # audio_proj w, b, mask_embed
 DENSE_SERVE = (("qwen3-32b", True), ("codeqwen1.5-7b", True))
 MOE_WATCH = ("layers.0.mlp/output", "layers.0.mlp/router_logits",
              "layers.0.mlp.router", "layers.0.mlp.experts.down")
+
+
+# built behind the phases that do not launch it: ssm_scan.cu (25 kernel
+# instances) takes about a minute of nvcc, and phase 16 launches it first
+LATE_BUILDS = ("ssm_scan",)
 
 
 def kernel_wrappers():
@@ -3400,17 +3439,18 @@ def decode_vs_forward(model, B, T):
 
 
 def decode_consistency(device):
-    """23d: full-width, full-depth ``CONSISTENCY[0]`` at f32 compute: the
-    logits of the decode path stepped over B x T tokens must match
-    ``forward`` + ``unembed`` within ``CONSISTENCY_TOL`` normwise, and
-    ``make_prefill_step``'s the last decode step's; the bf16-compute
-    values printed beside."""
+    """23d: full-width ``CONSISTENCY[0]`` at ``CONSISTENCY_LAYERS`` layers
+    and f32 compute: the logits of the decode path stepped over B x T
+    tokens must match ``forward`` + ``unembed`` within ``CONSISTENCY_TOL``
+    normwise, and ``make_prefill_step``'s the last decode step's; the
+    bf16-compute values printed beside."""
     import torch
     from repro_torch.configs.base import get_config
     from repro_torch.models.model import Model
     name, B, T = CONSISTENCY
     t0 = time.perf_counter()
-    model = Model(get_config(name), seed=0, device=device)
+    cfg = dataclasses.replace(get_config(name), n_layers=CONSISTENCY_LAYERS)
+    model = Model(cfg, seed=0, device=device)
     build_s = time.perf_counter() - t0
     try:
         return dict(decode_vs_forward(model, B, T), build_s=build_s)
@@ -3841,6 +3881,344 @@ def dense_phases(device, phase):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 26a-26c: the training driver (launch/train.py) over full-width,
+# full-depth tinyllama-1.1b with its --ttrace-every check, resume at the
+# step level and through the CLI, and the single-pair rel-err layout
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "tinyllama-1.1b"
+TRAIN_BATCH = (8, 128)       # the CLI's default batch
+TRAIN_ARGV = ("--arch", TRAIN_ARCH, "--steps", "8", "--batch", "8", "--seq",
+              "128", "--n-micro", "2", "--ttrace-every", "4", "--log-every",
+              "1", "--device", "cuda")
+TRAIN_CHECK_LAUNCHES = 6     # 5 in the estimate, 1 in the compare
+RESUME_LAYERS = 2            # full width, bf16 parameters
+RESUME_STEPS = (6, 4)        # save after 6, then 4 more: against 10
+RESUME_CLI = ("--reduced", "--steps", "6", "--n-micro", "2",
+              "--ttrace-every", "3")
+SINGLE_PAIR_SIZES = (1, 65535, 65536, 65537, 3_000_017, 16_777_259)
+
+
+@contextlib.contextmanager
+def patched(obj, name, value):
+    """``obj.name`` is ``value`` inside the block."""
+    old = getattr(obj, name)
+    setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        setattr(obj, name, old)
+
+
+def files_under(*roots) -> set:
+    """Every file path under ``roots`` (what a phase may have written);
+    ``chiprun_out`` is where this script's own log may go, and
+    ``__pycache__`` is Python's."""
+    out = set()
+    for root in roots:
+        for d, dirs, fs in os.walk(root):
+            dirs[:] = [x for x in dirs
+                       if x not in ("chiprun_out", "__pycache__")]
+            out.update(os.path.join(d, f) for f in fs)
+    return out
+
+
+def train_main(device):
+    """26a: ``launch.train.main`` for full-width, full-depth tinyllama-1.1b,
+    8 steps at B 8 x S 128 in 2 microbatches, the ``--ttrace-every 4``
+    check at step 4: it must PASS with ``TRAIN_CHECK_LAUNCHES`` rel-err
+    launches and no other kernel, over the tensors ``check_trace_shapes``
+    counts; all 8 losses finite; nothing written to disk."""
+    import io
+    import tempfile
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import train as cli
+
+    cfg = get_config(TRAIN_ARCH)
+    B, S = TRAIN_BATCH
+    step_s, checks = [], []
+    make_step, check = cli.make_train_step, cli.ttrace_check
+
+    def timed_make(*a, **kw):
+        fn = make_step(*a, **kw)
+
+        def step(*sa):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*sa)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            return out
+        return step
+
+    def checked(ref, cand, batch, **kw):
+        t0 = time.perf_counter()
+        res = check(ref, cand, batch, **kw)
+        wall = time.perf_counter() - t0
+        check_trace_shapes(res, cfg, B, S)
+        checks.append(dict(passed=res.passed, tensors=len(res.report.records),
+                           seconds=res.seconds, wall=wall,
+                           worst=max(r.rel_err / r.threshold
+                                     for r in res.report.records)))
+        return res
+
+    before = files_under(ROOT, tempfile.gettempdir())
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    out = io.StringIO()
+    reset_counts()
+    t0 = time.perf_counter()
+    with patched(cli, "make_train_step", timed_make), \
+            patched(cli, "ttrace_check", checked), \
+            contextlib.redirect_stdout(out):
+        losses = cli.main(list(TRAIN_ARGV))
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated(device) / 2**30
+    log(out.getvalue().rstrip())
+    written = sorted(files_under(ROOT, tempfile.gettempdir()) - before)
+    stats = dict(counts=counts, launches=counts["packed_sq_norms"],
+                 losses=losses, step_s=step_s, checks=checks,
+                 seconds=seconds, peak_gib=peak)
+    log(f"train_main {TRAIN_ARCH} ({cfg.n_layers} layers, B {B} x S {S}, 2 "
+        f"microbatches): {json.dumps(stats)}")
+    if out.getvalue().count("  [ttrace] regression check: PASS") != 1 or \
+            len(checks) != 1 or not checks[0]["passed"]:
+        raise AssertionError(f"the step-4 check did not PASS once: {checks}")
+    if counts["packed_sq_norms"] != TRAIN_CHECK_LAUNCHES:
+        raise AssertionError(f"packed_sq_norms launched "
+                             f"{counts['packed_sq_norms']} times, want "
+                             f"{TRAIN_CHECK_LAUNCHES}")
+    others = {k: v for k, v in counts.items() if k != "packed_sq_norms" and v}
+    if others:
+        raise AssertionError(f"kernels off the path launched {others}")
+    if len(losses) != 8 or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"losses {losses}")
+    if written:
+        raise AssertionError(f"the run wrote {written[:5]}")
+    return stats
+
+
+def train_resume(device, root):
+    """26b: full width at ``RESUME_LAYERS`` layers (bf16 parameters),
+    ``make_train_step`` at 2 microbatches: 6 steps, ``save_checkpoint``,
+    ``load_checkpoint``, 4 more must be bit-identical to 10 uninterrupted
+    steps; then ``python -m repro_torch.launch.train`` (``RESUME_CLI``,
+    ``--save``) must exit 0 with its check PASSing.  What each wrote is
+    logged and removed."""
+    import shutil
+    import torch
+    from repro_torch.checkpoint.store import (load_checkpoint,
+                                              save_checkpoint)
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.collector import named_params
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.model import Model
+    from repro_torch.optim.adamw import AdamW, warmup_cosine
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=RESUME_LAYERS)
+    B, S = TRAIN_BATCH
+    first, rest = RESUME_STEPS
+    model = Model(cfg, seed=0, device=device)
+    p0 = {k: v.detach().clone() for k, v in named_params(model).items()}
+    n_params = sum(v.numel() for v in p0.values())
+    opt = AdamW(lr=warmup_cosine(3e-4, 1, first + rest))
+    step = make_train_step(model, opt, n_micro=2)
+
+    def run(p, st, steps):
+        for k in steps:
+            p, st, _ = step(p, st, make_batch(cfg, B, S, seed=0, step=k,
+                                              device=device))
+        return p, st
+
+    seconds = {}
+    t0 = time.perf_counter()
+    whole = run(p0, opt.init(p0), range(first + rest))
+    torch.cuda.synchronize()
+    seconds["uninterrupted"] = time.perf_counter() - t0
+    p, st = run(p0, opt.init(p0), range(first))
+    ck = os.path.join(root, "train_ckpt")
+    t0 = time.perf_counter()
+    save_checkpoint(ck, (p, st), step=first)
+    seconds["save"] = time.perf_counter() - t0
+    ck_gb = dir_gb(ck)
+    log(f"work dir holds {dir_gb(root):.3f} GB (a checkpoint of "
+        f"{n_params} bf16 parameters and their AdamW state)")
+    del p, st
+    t0 = time.perf_counter()
+    (p, st), at, _ = load_checkpoint(ck, (p0, opt.init(p0)))
+    seconds["load"] = time.perf_counter() - t0
+    shutil.rmtree(ck)
+    resumed = run(p, st, range(at, first + rest))
+    diffs = _states_equal(whole, resumed)
+    if at != first or diffs:
+        raise AssertionError(f"resumed at {at}; leaves differing from the "
+                             f"uninterrupted run: {diffs[:5]}")
+    log(f"train_resume: {first} steps + save + load + {rest} == "
+        f"{first + rest} steps, every leaf of (params, AdamW state) "
+        f"bit-identical; seconds {json.dumps(seconds)}")
+    del whole, resumed, p, st, model, p0
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    work = os.path.join(root, "train_cli")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    argv = [*RESUME_CLI, "--save", work]
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
+                          *argv], capture_output=True, text=True,
+                         timeout=600, env=env, cwd=ROOT)
+    seconds["cli"] = time.perf_counter() - t0
+    cli_gb = dir_gb(work)
+    log(f"--- train {' '.join(argv)}: rc {out.returncode} in "
+        f"{seconds['cli']:.2f} s\n{out.stdout.strip()}")
+    log(f"work dir holds {dir_gb(root):.3f} GB (the CLI's checkpoint)")
+    shutil.rmtree(work, ignore_errors=True)
+    if out.returncode != 0 or "  [ttrace] regression check: PASS" not in \
+            out.stdout or f"saved to {work}" not in out.stdout:
+        raise AssertionError(f"train CLI: rc {out.returncode}\n{out.stdout}"
+                             f"\n{out.stderr[-3000:]}")
+    return dict(seconds=seconds, params=n_params, checkpoint_gb=ck_gb,
+                cli_gb=cli_gb)
+
+
+def check_single_pair(device):
+    """26c: ``kernels.relerr.sq_norms`` and ``ops.rel_err`` (one launch
+    each of ``packed_sq_norms`` at 65536 elements a block) at
+    ``SINGLE_PAIR_SIZES``, f32 and bf16 leaves, against float64 and the
+    plain version (``REL_TOL`` on each sum), a zero ``a``, NaN in real
+    data, two launches bit-identical.  Returns (largest |kernel - plain|,
+    launches)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.relerr import (SINGLE_PAIR_BLOCK,
+                                            packed_sq_norms,
+                                            packed_sq_norms_ref,
+                                            rel_err_ref, single_pair_layout,
+                                            sq_norms)
+
+    gen = torch.Generator(device="cpu").manual_seed(26)
+    max_err, calls = 0.0, 0
+    reset_counts()
+
+    def one(fn, *args):
+        nonlocal calls
+        n0 = packed_sq_norms.launches
+        out = fn(*args)
+        if packed_sq_norms.launches != n0 + 1:
+            raise AssertionError(f"{fn.__name__}: "
+                                 f"{packed_sq_norms.launches - n0} launches")
+        calls += 1
+        return out
+
+    for n in SINGLE_PAIR_SIZES:
+        a = torch.randn(n, generator=gen) * (0.01 + 10 * torch.rand(
+            1, generator=gen))
+        b = a + 1e-3 * torch.randn(n, generator=gen)
+        for dtype in (torch.float32, torch.bfloat16):
+            da, db = a.to(device, dtype), b.to(device, dtype)
+            a64, b64 = da.double(), db.double()
+            ref = torch.stack([torch.dot(a64 - b64, a64 - b64),
+                               torch.dot(a64, a64)])[None]
+            k1 = torch.stack(one(sq_norms, da, db))[None]
+            k2 = torch.stack(one(sq_norms, da, db))[None]
+            plain = packed_sq_norms_ref(*single_pair_layout(da, db),
+                                        n_segments=1,
+                                        block=SINGLE_PAIR_BLOCK)
+            if not torch.equal(k1, k2):
+                raise AssertionError(f"n {n} {dtype}: two launches differ")
+            _within(k1, ref, f"single pair n {n} {dtype}")
+            _within(plain, ref, f"plain n {n} {dtype}")
+            max_err = max(max_err, float((k1 - plain).abs().max()))
+            got, want = one(ops.rel_err, da, db), rel_err_ref(da, db)
+            if abs(got - want) > REL_TOL * want:
+                raise AssertionError(f"rel_err n {n} {dtype}: {got} vs "
+                                     f"float64 {want}")
+            zero = torch.zeros_like(da)
+            got, want = one(ops.rel_err, zero, db), rel_err_ref(zero, db)
+            if abs(got - want) > REL_TOL * want:
+                raise AssertionError(f"zero a, n {n} {dtype}: {got} vs ||b|| "
+                                     f"{want}")
+            bad = da.clone()
+            bad[n // 2] = float("nan")
+            if not all(math.isnan(float(x)) for x in one(sq_norms, bad, db)):
+                raise AssertionError(f"n {n} {dtype}: a NaN in real data did "
+                                     f"not propagate")
+        log(f"single pair n {n}: f32 and bf16 ok")
+    launches = read_counts()["packed_sq_norms"]
+    if launches != calls:
+        raise AssertionError(f"{launches} launches for {calls} calls")
+    return max_err, launches
+
+
+def single_pair_timing(device):
+    """26c: the largest single pair, f32: the kernel per launch (the card
+    held busy), the copy to f32 and the pad (``single_pair_layout``), the
+    plain version, and ``torch.linalg.vector_norm`` of a - b and of a as
+    the library yardstick, beside the bytes bound 2 n 4 B over HBM."""
+    import torch
+    from repro_torch.kernels.relerr import (SINGLE_PAIR_BLOCK,
+                                            packed_sq_norms,
+                                            packed_sq_norms_ref,
+                                            single_pair_layout)
+    n = SINGLE_PAIR_SIZES[-1]
+    gen = torch.Generator(device="cpu").manual_seed(27)
+    a = torch.randn(n, generator=gen).to(device)
+    b = a + 1e-3 * torch.randn(n, generator=gen).to(device)
+    args = single_pair_layout(a, b)
+    launches = packed_sq_norms.launches
+    kw = dict(n_segments=1, block=SINGLE_PAIR_BLOCK)
+    with uninitialized_fill(False):
+        ms = device_time_ms(lambda: packed_sq_norms(*args, **kw))
+        layout_ms = device_time_ms(lambda: single_pair_layout(a, b))
+        plain_ms = device_time_ms(lambda: packed_sq_norms_ref(*args, **kw),
+                                  reps=5, warmup=1)
+        library_ms = device_time_ms(lambda: (
+            torch.linalg.vector_norm(a - b), torch.linalg.vector_norm(a)),
+            reps=5, warmup=1)
+    packed_sq_norms.launches = launches      # timing launches are not counted
+    bound_ms = 2 * n * 4 / HBM_BYTES_PER_S * 1e3
+    return dict(n=n, blocks=int(args[2].numel()), ms=ms, layout_ms=layout_ms,
+                plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                bound_share=bound_ms / ms)
+
+
+def train_phases(device, phase):
+    """Phases 26a-26c, in a temporary work dir removed at the end."""
+    import shutil
+    import tempfile
+    import torch
+    out = {"train_main": phase("train_main", lambda: train_main(device))}
+    gc.collect()
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        out["train_resume"] = phase("train_resume",
+                                    lambda: train_resume(device, root))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    single = phase("rel_err_kernel", lambda: check_single_pair(device))
+    if single is not None:
+        out["rel_err_kernel"] = dict(max_abs_err=single[0],
+                                     launches=single[1])
+    timed = phase("rel_err_timing", lambda: single_pair_timing(device))
+    if timed is not None:
+        log(f"packed_sq_norms single pair, n {timed['n']} f32 "
+            f"({timed['blocks']} blocks of 65536) on {card_line()}: kernel "
+            f"{timed['ms']:.4f} ms ({timed['bound_share']:.3f} of the "
+            f"bound), copy to f32 and pad {timed['layout_ms']:.4f} ms, plain "
+            f"{timed['plain_ms']:.4f} ms, library (2 vector_norm) "
+            f"{timed['library_ms']:.4f} ms, bound {timed['bound_ms']:.4f} "
+            f"ms (bytes)")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3881,13 +4259,17 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.use_deterministic_algorithms(True)
 
-    def do_build():
-        secs = build.build_all()
+    def log_builds(secs):
         for name, s in secs.items():
             log(f"built {name} in {s:.2f} s")
             log(build.lib_path(name).with_suffix(".log").read_text().strip())
         return secs
-    phase("build", do_build)
+
+    # its thread is joined at phase 16, or at exit if the run ends first
+    late_build = concurrent.futures.ThreadPoolExecutor(1).submit(
+        build.build_all, LATE_BUILDS)
+    phase("build", lambda: log_builds(build.build_all(
+        tuple(n for n in build.SOURCES if n not in LATE_BUILDS))))
     if failures:
         return 1
 
@@ -3995,6 +4377,7 @@ def main() -> int:
     main = res = model = batch = None
     torch.cuda.empty_cache()
     sup_phases(cfg, phase)
+    phase("build_late", lambda: log_builds(late_build.result()))
     ssm_err = phase("ssm_kernel", lambda: check_ssm_kernel(dev))
     ssm = ssm_timed = None
     B_ssm, S_ssm = 2, 4096
@@ -4036,13 +4419,22 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     dense = dense_phases(dev, phase)
+    gc.collect()
+    torch.cuda.empty_cache()
+    trained = train_phases(dev, phase)
     if failures:
         log(f"FAILED phases: {failures}")
         return 1
+    relerr_by_path = {"gpt-paper": stats["launches"],
+                      "train": trained["train_main"]["launches"],
+                      "rel_err": trained["rel_err_kernel"]["launches"]}
     kernels = [{
         "name": "packed_sq_norms", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES, "launches": stats["launches"],
-        "max_abs_err": max(kernel_err, timing["max_abs_err"]),
+        "replaces": KERNEL_REPLACES,
+        "launches": sum(relerr_by_path.values()),
+        "launches_by_path": relerr_by_path,
+        "max_abs_err": max(kernel_err, timing["max_abs_err"],
+                           trained["rel_err_kernel"]["max_abs_err"]),
         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
         "library_ms": timing["library_ms"]}]

@@ -9,7 +9,15 @@ from one reduction:
   hand-written CUDA kernel on the card (the TPU's role in the reference),
   its plain version for CPU tensors; N x 2 scalars reach the host;
 * **loop**: below ``MIN_BATCHED_ELEMS`` total elements, a per-pair float64
-  loop — the reference semantic, cheaper than packing a tiny section.
+  loop — the reference semantic, cheaper than packing a tiny section;
+* **blas**: the reference's CPU executor, f32 dot products over zero-copy
+  numpy views, for CPU tensors only.
+
+The reference's **fused** mode (one compiled XLA reduction, its path on a
+GPU backend) has no counterpart: on the card, ``packed`` does that job,
+and both ``fused`` and ``blas`` on a CUDA tensor raise naming it.
+``mode=None`` chooses between ``loop`` and ``packed`` by total size on
+every device, where the reference picks ``loop`` or ``blas`` on its CPU.
 
 ``sq_norms_async`` is the asynchronous form the supervised loop uses: the
 packed reduction is dispatched and its N x 2 result copied to pinned host
@@ -17,59 +25,30 @@ memory behind a CUDA event, and a ``NormsFuture`` stands for it.
 """
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.kernels.relerr import DEFAULT_BLOCK
+from repro_torch.kernels.relerr import pack_device
 
 # Below this many total section elements the float64 loop runs (the
 # reference's TPU cutoff, which the card takes over).
 MIN_BATCHED_ELEMS = 1 << 12
 
 
+def rel_err_np(a, b) -> float:
+    """Per-pair float64 reference: ||a-b|| / ||a|| (paper §2.2)."""
+    a64 = np.asarray(a, np.float64)
+    b64 = np.asarray(b, np.float64)
+    na = np.linalg.norm(a64)
+    d = np.linalg.norm(a64 - b64)
+    return float(d / na) if na > 0 else float(d)
+
+
 def _raw(section, name):
     """Stored leaf without forcing a host copy (Section.raw or dict item)."""
     getter = getattr(section, "raw", None)
     return getter(name) if getter is not None else section[name]
-
-
-@functools.lru_cache(maxsize=64)
-def _segments(sizes: tuple, block: int, device: torch.device):
-    """``(seg_ids, counts)`` of a packed section on ``device``.  Computed
-    host-side from the sizes and copied once per layout: a section's
-    layout repeats every step, and a copy per call would wait for the
-    device."""
-    nblocks = [max(1, -(-s // block)) for s in sizes]
-    seg_ids = np.repeat(np.arange(len(sizes), dtype=np.int32), nblocks)
-    counts = np.concatenate([
-        np.clip(s - np.arange(nb, dtype=np.int64) * block, 0, block)
-        for s, nb in zip(sizes, nblocks)]).astype(np.int32)
-    return (torch.from_numpy(seg_ids).to(device),
-            torch.from_numpy(counts).to(device))
-
-
-def pack_device(leaves_a, leaves_b, block: int = DEFAULT_BLOCK):
-    """Pack pairs into the kernel's flat block-aligned f32 layout on the
-    leaves' device.  Returns (a_flat, b_flat, seg_ids, counts); see
-    ``kernels.relerr`` for the layout contract.  Metadata is computed
-    host-side from shapes — no leaf is transferred."""
-    sizes = tuple(int(x.numel()) for x in leaves_a)
-    nblocks = [max(1, -(-s // block)) for s in sizes]
-    device = leaves_a[0].device
-    total = sum(nblocks) * block
-    flats = []
-    for leaves in (leaves_a, leaves_b):
-        flat = torch.zeros(total, dtype=torch.float32, device=device)
-        off = 0
-        for x, s, nb in zip(leaves, sizes, nblocks):
-            flat[off:off + s].copy_(x.reshape(-1))
-            off += nb * block
-        flats.append(flat)
-    seg_ids, counts = _segments(sizes, block, device)
-    return flats[0], flats[1], seg_ids, counts
 
 
 def _packed_path(leaves_a, leaves_b) -> np.ndarray:
@@ -88,11 +67,28 @@ def _loop_path(leaves_a, leaves_b) -> np.ndarray:
     return torch.stack(rows).cpu().numpy()
 
 
+def _blas_path(leaves_a, leaves_b) -> np.ndarray:
+    """CPU executor: f32 BLAS over zero-copy views of the leaves."""
+    def as_f32(x):
+        return x.detach().reshape(-1).float().numpy()
+
+    out = np.empty((len(leaves_a), 2), np.float64)
+    scratch = np.empty(max(int(x.numel()) for x in leaves_a), np.float32)
+    for i, (a, b) in enumerate(zip(leaves_a, leaves_b)):
+        an, bn = as_f32(a), as_f32(b)
+        d = scratch[:an.size]
+        np.subtract(an, bn, out=d)
+        out[i, 0] = np.dot(d, d)
+        out[i, 1] = np.dot(an, an)
+    return out
+
+
 def section_sq_norms(leaves_a, leaves_b, mode: str | None = None
                      ) -> np.ndarray:
     """(N, 2) float64 of ``(||a-b||^2, ||a||^2)`` per pair of tensors.
 
-    ``mode``: None (auto by size), "loop" or "packed".
+    ``mode``: None (auto by size), "loop", "packed", or "blas" (CPU
+    tensors); "fused" and "blas" on the card raise, naming "packed".
     """
     if not leaves_a:
         return np.zeros((0, 2), np.float64)
@@ -103,6 +99,14 @@ def section_sq_norms(leaves_a, leaves_b, mode: str | None = None
         return _loop_path(leaves_a, leaves_b)
     if mode == "packed":
         return _packed_path(leaves_a, leaves_b)
+    if mode == "fused":
+        raise ValueError("rel-err mode 'fused' is the reference's one XLA "
+                         "reduction; on the card mode 'packed' does its job")
+    if mode == "blas":
+        if any(x.device.type != "cpu" for x in (*leaves_a, *leaves_b)):
+            raise ValueError("rel-err mode 'blas' runs on CPU tensors; on "
+                             "the card use mode 'packed'")
+        return _blas_path(leaves_a, leaves_b)
     raise ValueError(f"unknown rel-err engine mode {mode!r}")
 
 

@@ -21,8 +21,8 @@ import torch
 from repro_torch.core import canonical as C
 from repro_torch.core.collector import Trace, to_numpy
 from repro_torch.core.generator import perturb
-from repro_torch.core.relerr_engine import (_to_rel_err, section_sq_norms,
-                                            sq_norms_async)
+from repro_torch.core.relerr_engine import (_to_rel_err, rel_err_np,
+                                            section_sq_norms, sq_norms_async)
 
 MACHINE_EPS = {
     "float32": 2.0 ** -24,
@@ -32,6 +32,15 @@ MACHINE_EPS = {
     # in bf16 epsilons, perturbations injected at bf16 magnitude.
     "float8_e4m3fn": 2.0 ** -8,
 }
+
+
+def rel_err(a, b) -> float:
+    """Relative Frobenius error ||a-b|| / ||a|| (paper §2.2) for one pair.
+
+    Section-scale comparisons go through ``relerr_engine.batched_rel_err``;
+    this per-pair float64 form stays as the reference semantic.
+    """
+    return rel_err_np(a, b)
 
 
 @dataclass

@@ -8,11 +8,19 @@ tensors only.  Kernels are built at first launch, never at import.
 from repro_torch.kernels import ssm_scan as _ssm
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.fp8_matmul import fp8_matmul, fp8_matmul_tile128
-from repro_torch.kernels.relerr import DEFAULT_BLOCK, packed_sq_norms
+from repro_torch.kernels.relerr import (DEFAULT_BLOCK, packed_sq_norms,
+                                       rel_err_fused)
 from repro_torch.models.ssm import rwkv_bonus
 
 __all__ = ["DEFAULT_BLOCK", "flash_attention", "fp8_matmul",
-           "fp8_matmul_tile128", "gla_scan", "packed_sq_norms"]
+           "fp8_matmul_tile128", "gla_scan", "packed_sq_norms", "rel_err"]
+
+
+def rel_err(a, b) -> float:
+    """||a-b|| / ||a|| of one pair (||a-b|| where ||a|| = 0): one
+    ``packed_sq_norms`` launch on CUDA tensors, its plain version on CPU
+    tensors."""
+    return rel_err_fused(a, b)
 
 
 def gla_scan(q, k, v, log_w, chunk=128, exclusive=False, u=None):

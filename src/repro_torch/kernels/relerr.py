@@ -1,8 +1,8 @@
 """Packed segmented rel-err reduction: the port of
 ``repro/kernels/relerr.py::packed_sq_norms``.
 
-Layout contract (produced by ``core.relerr_engine.pack_device``, the same
-as the reference's):
+Layout contract (produced by ``pack_device``, the same as the
+reference's):
 
 * each pair's elements are flattened to f32 and placed at a
   ``block``-aligned offset; the tail of its last block is zero-filled,
@@ -19,14 +19,23 @@ load for each of 256 threads, and the tests compare layouts at one block.
 (``csrc/relerr.cu``) for CUDA tensors and its plain version,
 ``packed_sq_norms_ref``, for CPU tensors only; a CUDA tensor launches the
 kernel or raises.  ``packed_sq_norms.launches`` counts kernel launches.
+
+The single-pair wrappers (``sq_norms``, ``rel_err_fused``) are one launch
+of the same kernel over one segment at ``SINGLE_PAIR_BLOCK`` elements a
+block, the reference's: with one pair there is no alignment waste, and
+each of the kernel's 256 threads loops over 64 float4 loads a block.
+``rel_err_ref`` is their plain float64 version.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
+import numpy as np
 import torch
 
 DEFAULT_BLOCK = 1024
+SINGLE_PAIR_BLOCK = 65536
 
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 
@@ -59,6 +68,42 @@ def _check(a_flat, b_flat, seg_ids, counts, n_segments, block):
     if len(devices) != 1:
         raise ValueError(f"packed tensors span devices {devices}")
     return nb
+
+
+@functools.lru_cache(maxsize=64)
+def _segments(sizes: tuple, block: int, device: torch.device):
+    """``(seg_ids, counts)`` of a packed section on ``device``.  Computed
+    host-side from the sizes and copied once per layout: a section's
+    layout repeats every step, and a copy per call would wait for the
+    device."""
+    nblocks = [max(1, -(-s // block)) for s in sizes]
+    seg_ids = np.repeat(np.arange(len(sizes), dtype=np.int32), nblocks)
+    counts = np.concatenate([
+        np.clip(s - np.arange(nb, dtype=np.int64) * block, 0, block)
+        for s, nb in zip(sizes, nblocks)]).astype(np.int32)
+    return (torch.from_numpy(seg_ids).to(device),
+            torch.from_numpy(counts).to(device))
+
+
+def pack_device(leaves_a, leaves_b, block: int = DEFAULT_BLOCK):
+    """Pack pairs into the kernel's flat block-aligned f32 layout on the
+    leaves' device.  Returns (a_flat, b_flat, seg_ids, counts), the
+    layout contract above.  Metadata is computed host-side from shapes —
+    no leaf is transferred."""
+    sizes = tuple(int(x.numel()) for x in leaves_a)
+    nblocks = [max(1, -(-s // block)) for s in sizes]
+    device = leaves_a[0].device
+    total = sum(nblocks) * block
+    flats = []
+    for leaves in (leaves_a, leaves_b):
+        flat = torch.zeros(total, dtype=torch.float32, device=device)
+        off = 0
+        for x, s, nb in zip(leaves, sizes, nblocks):
+            flat[off:off + s].copy_(x.reshape(-1))
+            off += nb * block
+        flats.append(flat)
+    seg_ids, counts = _segments(sizes, block, device)
+    return flats[0], flats[1], seg_ids, counts
 
 
 def packed_sq_norms_ref(a_flat, b_flat, seg_ids, counts, n_segments: int,
@@ -109,3 +154,41 @@ def packed_sq_norms(a_flat, b_flat, seg_ids, counts, n_segments: int,
 
 
 packed_sq_norms.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# single-pair wrappers
+# ---------------------------------------------------------------------------
+
+def single_pair_layout(a, b, block: int = SINGLE_PAIR_BLOCK):
+    """``pack_device`` of the one pair (a, b): each leaf flattened into a
+    new, zero-padded f32 buffer of whole blocks (bf16 or strided leaves
+    are copied the same way), one block for an empty pair."""
+    if a.numel() != b.numel():
+        raise ValueError(f"pair sizes differ: {a.numel()} and {b.numel()}")
+    return pack_device([a.detach()], [b.detach()], block)
+
+
+def sq_norms(a, b, block: int = SINGLE_PAIR_BLOCK):
+    """``(||a-b||^2, ||a||^2)`` for ONE pair as two 0-d f32 tensors on its
+    device: one ``packed_sq_norms`` launch over a single segment."""
+    out = packed_sq_norms(*single_pair_layout(a, b, block), n_segments=1,
+                          block=block)
+    return out[0, 0], out[0, 1]
+
+
+def rel_err_fused(a, b) -> float:
+    """||a-b|| / ||a|| of one pair through the kernel; ||a-b|| where
+    ||a|| = 0."""
+    d2, a2 = sq_norms(a, b)
+    d2, a2 = float(d2), float(a2)
+    return (d2 ** 0.5) / (a2 ** 0.5) if a2 > 0 else d2 ** 0.5
+
+
+def rel_err_ref(a, b) -> float:
+    """Plain float64 version of ``rel_err_fused``."""
+    a64 = torch.as_tensor(a).detach().reshape(-1).double()
+    d = a64 - torch.as_tensor(b).detach().reshape(-1).to(a64)
+    na = float(torch.linalg.vector_norm(a64))
+    nd = float(torch.linalg.vector_norm(d))
+    return nd / na if na > 0 else nd

@@ -153,10 +153,10 @@ class Block(nn.Module):
             h, cache, pos, **kw))
         return x, cache
 
-    def init_cache(self, batch, seq_len, dtype):
+    def init_cache(self, batch, seq_len, dtype, device=None):
         init = mla_init_cache if self.mla else gqa_init_cache
         return init(self.self_attention.cfg, batch, seq_len, dtype,
-                    self.input_norm.device)
+                    device or self.input_norm.device)
 
 
 class RWKVBlock(nn.Module):
@@ -193,9 +193,9 @@ class RWKVBlock(nn.Module):
                                           state=st["channel_mix"])
         return x + cm, {"time_mix": new_tm, "channel_mix": new_cm}
 
-    def init_cache(self, batch, seq_len, dtype):
+    def init_cache(self, batch, seq_len, dtype, device=None):
         return rwkv6_init_state(self.time_mix.cfg, batch, dtype,
-                                self.input_norm.device)
+                                device or self.input_norm.device)
 
 
 class MambaBlock(nn.Module):
@@ -220,9 +220,9 @@ class MambaBlock(nn.Module):
             mo, new_state = self.mixer(h, ctx=ctx, state=state)
         return x + mo, new_state
 
-    def init_cache(self, batch, seq_len, dtype):
+    def init_cache(self, batch, seq_len, dtype, device=None):
         return mamba2_init_state(self.mixer.cfg, batch, dtype,
-                                 self.input_norm.device)
+                                 device or self.input_norm.device)
 
 
 def make_block(gen, cfg: ArchConfig, kind: str, dtype) -> nn.Module:
@@ -385,13 +385,13 @@ class Model(nn.Module):
 
     # ---- decode ---------------------------------------------------------------
 
-    def init_cache(self, batch, seq_len):
-        """``{segment name: [each layer's cache]}`` on the model's device,
-        in the compute dtype (the SSM scan states are f32); each use of a
-        hybrid's shared block has its own.  A cache holds ``seq_len``
-        positions (a sliding-window arch's at most ``window``, as a
-        ring)."""
-        return {seg.name: [blk.init_cache(batch, seq_len, self.cdtype)
+    def init_cache(self, batch, seq_len, device=None):
+        """``{segment name: [each layer's cache]}`` on ``device`` (default
+        the model's; ``"meta"`` allocates nothing), in the compute dtype
+        (the SSM scan states are f32); each use of a hybrid's shared block
+        has its own.  A cache holds ``seq_len`` positions (a
+        sliding-window arch's at most ``window``, as a ring)."""
+        return {seg.name: [blk.init_cache(batch, seq_len, self.cdtype, device)
                            for _, blk in self.scoped_blocks(seg)]
                 for seg in self.plan}
 

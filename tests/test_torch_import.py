@@ -1,7 +1,7 @@
 """The port stands alone: importing every ``repro_torch`` module loads
 neither ``jax``, nor anything of ``repro``, nor ``ml_dtypes`` (which the
-card's machine does not have), and no source of the port or of
-``chip_smoke.py`` imports them."""
+card's machine does not have), and no source of the port, of
+``chip_smoke.py`` or of an ``examples/torch_*.py`` imports them."""
 import ast
 import os
 import subprocess
@@ -20,6 +20,12 @@ def _sources():
     for d, _, files in os.walk(PORT):
         out += [os.path.join(d, f) for f in files if f.endswith(".py")]
     return sorted(out)
+
+
+def _examples():
+    ex = os.path.join(ROOT, "examples")
+    return sorted(os.path.join(ex, f) for f in os.listdir(ex)
+                  if f.startswith("torch_") and f.endswith(".py"))
 
 
 def _modules():
@@ -52,7 +58,8 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
             "repro_torch.supervise.watchdog", "repro_torch.supervise.faults",
             "repro_torch.launch.supervise", "repro_torch.parallel.pp",
             "repro_torch.parallel.pp1f1b", "repro_torch.core.merger",
-            "repro_torch.core.canonical"} <= set(mods)
+            "repro_torch.core.canonical",
+            "repro_torch.launch.train"} <= set(mods)
     code = ("import sys\n"
             + "".join(f"import {m}\n" for m in mods)
             + f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -64,7 +71,16 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
     assert out.returncode == 0, out.stdout + out.stderr
 
 
-@pytest.mark.parametrize("path", _sources(), ids=lambda p: os.path.relpath(p, ROOT))
+def test_every_port_example_is_scanned():
+    names = {os.path.basename(p) for p in _examples()}
+    assert {"torch_find_injected_bug.py", "torch_supervised_run.py",
+            "torch_quickstart.py", "torch_threshold_estimation.py",
+            "torch_loss_curve_blindness.py",
+            "torch_parallelism_sweep.py"} <= names
+
+
+@pytest.mark.parametrize("path", _sources() + _examples(),
+                         ids=lambda p: os.path.relpath(p, ROOT))
 def test_no_source_imports_jax_or_repro(path):
     tree = ast.parse(open(path).read(), path)
     for node in ast.walk(tree):
