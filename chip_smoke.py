@@ -365,6 +365,33 @@ prints no result line):
              call per launch (the card held busy) beside the copy to f32
              and the pad, the plain version, two ``vector_norm`` calls and
              the bytes bound.
+27a. dryrun_train (27a-27d run last) — ``launch.dryrun.dryrun_config``'s
+             meta plan of one train step of full-width, full-depth
+             ``tinyllama-1.1b`` at 26a's B 8 x S 128 in 2 microbatches on
+             the host mesh, against the same ``make_train_step`` on the
+             card, with ``remat`` on (the config's) and off: the planned
+             peak (arguments + temp) within 10% of
+             ``max_memory_allocated`` (read after
+             ``reset_peak_memory_stats``, less the bytes earlier phases
+             left allocated), the meta flop count equal to
+             ``FlopCounterMode``'s on the card (a second call: the
+             counter's module tracker keeps tensors alive), no kernel
+             launched, the two losses equal; both peaks and step times
+             logged;
+27b. dryrun_serve — the same two checks for a ``make_prefill_step`` at
+             B 8 x S 2048 and a ``make_serve_step`` at B 32 with 4096
+             cached positions of the same model;
+27c. dryrun_candidate — ``dryrun_candidate``'s meta plan of
+             ``dist_main``'s candidate (full-width ``gpt-paper``,
+             dp2·cp2·tp2·sp, B 8 x S 1024, the 8 ranks stacked): its
+             collective report (``parallel.mesh.collective_log``) equal to
+             one real step's on the card by kind, count and bytes, its
+             flops equal, its rank-stacked peak within 10%;
+27d. dryrun_cli — ``python -m repro_torch.launch.dryrun`` for
+             ``tinyllama-1.1b`` x ``decode_32k`` on the host mesh and
+             ``qwen1.5-110b`` x ``decode_32k`` on the single-pod mesh, at
+             once, must exit 0; each pair's per-device GiB logged against
+             80 GB (the full ``--all`` sweep takes hours of meta ops).
 
 Every kernel's launch count is set to 0 just before each path (phases 4,
 8, 12, 13, 14, 15a, 15b, 15c, 17, 18, 20a-20e, 21a-21d, 22a-22c, 23a-23c,
@@ -4219,6 +4246,283 @@ def train_phases(device, phase):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 27a-27d: the dry run (launch/dryrun.py), its meta-device plan held
+# against real runs on the card: the planned peak against
+# max_memory_allocated, the meta flop count against FlopCounterMode, the
+# candidate's collective report against the card's log; then the CLI
+# ---------------------------------------------------------------------------
+
+DRY_ARCH = "tinyllama-1.1b"
+DRY_TRAIN = (8, 128, 2)          # 26a's B, S and microbatches
+DRY_PREFILL = (8, 2048)          # B x S: plain attention, (S, S) scores
+DRY_DECODE = (32, 4096)          # B x cache positions, the step at 4095
+DRY_PEAK_TOL = 0.10              # planned peak against the card's, relative
+DRY_CLI = (("--arch", DRY_ARCH, "--shape", "decode_32k", "--host"),
+           ("--arch", "qwen1.5-110b", "--shape", "decode_32k"))
+
+
+def held(device) -> int:
+    """The bytes allocated on the card now, after a collection: what
+    earlier phases left, measured before a phase makes its arguments."""
+    import torch
+    gc.collect()
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated(device)
+
+
+def card_run(device, fn, floor):
+    """``fn()`` on the card, the peak statistic reset just before: (its
+    output, the card's figures).  ``peak`` and ``before`` are
+    max_memory_allocated over the call and the bytes allocated as it
+    starts, each less ``floor``, what earlier phases left (``held``
+    before this phase made its arguments); ``flops`` is
+    ``FlopCounterMode``'s count of a second call, ``secs`` the first's
+    synchronized seconds.  The peak is read without the counter: its
+    module tracker keeps tensors alive for their gradient hooks.  No
+    kernel may launch: the dry run's path is the plain model's."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    before = held(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(device)
+    with FlopCounterMode(display=False) as fc:
+        fn()
+    launched = {k: v for k, v in read_counts().items() if v}
+    if launched:
+        raise AssertionError(f"kernels launched on the plain path: {launched}")
+    return out, dict(peak=peak - floor, before=before - floor, floor=floor,
+                     flops=fc.get_total_flops(), secs=secs)
+
+
+def plan_against_card(label, rec, card, plan_peak=None):
+    """The plan's peak within ``DRY_PEAK_TOL`` of the card's, its flops
+    equal to the card's count; logged with the card's line."""
+    pd = rec["per_device"]
+    planned = pd["peak_bytes"] if plan_peak is None else plan_peak
+    rel = planned / card["peak"] - 1
+    gib = 2**30
+    row = dict(planned_peak_gib=planned / gib,
+               card_peak_gib=card["peak"] / gib, rel=rel,
+               planned_args_gib=((planned - pd["temp_bytes"]) / gib
+                                 if plan_peak is None else None),
+               card_before_gib=card["before"] / gib,
+               earlier_phases_gib=card["floor"] / gib,
+               meta_flops=rec["flops"], card_flops=card["flops"],
+               bytes_accessed=rec["bytes_accessed"], meta_s=rec["compile_s"],
+               card_s=card["secs"])
+    log(f"{label} on {card_line()}: {json.dumps(row)}")
+    if abs(rel) > DRY_PEAK_TOL:
+        raise AssertionError(f"{label}: planned peak {planned} against the "
+                             f"card's {card['peak']} ({rel:+.4f})")
+    if rec["flops"] != card["flops"]:
+        raise AssertionError(f"{label}: meta flops {rec['flops']} against "
+                             f"the card's {card['flops']}")
+    return row
+
+
+def dryrun_train(device):
+    """27a: full-width, full-depth ``DRY_ARCH`` at 26a's batch: the
+    host-mesh plan of one train step against one real ``make_train_step``
+    of the same config, with ``remat`` on (the config's) and off."""
+    import torch
+    from repro_torch.configs.base import InputShape, get_config
+    from repro_torch.core.collector import named_params
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.launch.dryrun import dryrun_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.model import Model
+    from repro_torch.optim.adamw import AdamW
+    B, S, n_micro = DRY_TRAIN
+    shape = InputShape("27a", S, B, "train")
+    cfg = get_config(DRY_ARCH)
+    floor = held(device)
+    model = Model(cfg, seed=0, device=device)
+    params = {k: p.detach() for k, p in named_params(model).items()}
+    batch = make_batch(cfg, B, S, seed=0, device=device)
+    out = {}
+    for remat in (True, False):
+        model.cfg = dataclasses.replace(cfg, remat=remat)
+        rec = dryrun_config(model.cfg, shape, make_host_mesh(),
+                            n_micro=n_micro)
+        opt = AdamW(lr=1e-4)
+        st = opt.init(params)
+        step = make_train_step(model, opt, n_micro=n_micro)
+        res, card = card_run(device, lambda: step(params, st, batch), floor)
+        loss = float(res[2]["loss"])
+        if not math.isfinite(loss):
+            raise AssertionError(f"27a loss {loss}")
+        out["remat" if remat else "no_remat"] = dict(plan_against_card(
+            f"27a train step, remat {'on' if remat else 'off'}", rec, card),
+            loss=loss)
+        del res, st
+    on, off = out["remat"], out["no_remat"]
+    log(f"27a: remat takes the card's peak from {off['card_peak_gib']:.4f} "
+        f"to {on['card_peak_gib']:.4f} GiB (the plan: "
+        f"{off['planned_peak_gib']:.4f} -> {on['planned_peak_gib']:.4f}); "
+        f"step {off['card_s']:.3f} -> {on['card_s']:.3f} s (remat on runs "
+        f"first)")
+    if on["loss"] != off["loss"]:
+        raise AssertionError(f"remat changed the loss: {on} {off}")
+    model.cfg = cfg
+    return out
+
+
+def dryrun_serve(device):
+    """27b: the host-mesh plans of a ``make_prefill_step`` (``DRY_PREFILL``)
+    and a ``make_serve_step`` (``DRY_DECODE``) of full-depth ``DRY_ARCH``
+    against the same steps on the card."""
+    from repro_torch.configs.base import InputShape, get_config
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.launch.dryrun import dryrun_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models.model import Model
+    cfg = get_config(DRY_ARCH)
+    floor = held(device)
+    model = Model(cfg, seed=0, device=device)
+    out = {}
+    B, S = DRY_PREFILL
+    rec = dryrun_config(cfg, InputShape("27b", S, B, "prefill"),
+                        make_host_mesh())
+    batch = make_batch(cfg, B, S, seed=0, device=device)
+    step = make_prefill_step(model)
+    logits, card = card_run(device, lambda: step(batch), floor)
+    if tuple(logits.shape) != (B, 1, cfg.vocab) or \
+            not bool(logits.isfinite().all()):
+        raise AssertionError(f"27b prefill logits {tuple(logits.shape)}")
+    del logits, batch
+    out["prefill"] = plan_against_card("27b prefill", rec, card)
+    B, T = DRY_DECODE
+    rec = dryrun_config(cfg, InputShape("27b", T, B, "decode"),
+                        make_host_mesh())
+    cache = model.init_cache(B, T)
+    tokens = make_batch(cfg, B, 1, seed=0, device=device)["tokens"]
+    step = make_serve_step(model)
+    (logits, cache), card = card_run(
+        device, lambda: step(cache, {"tokens": tokens, "pos": T - 1}), floor)
+    if tuple(logits.shape) != (B, 1, cfg.vocab) or \
+            not bool(logits.isfinite().all()):
+        raise AssertionError(f"27b decode logits {tuple(logits.shape)}")
+    del logits, cache
+    out["decode"] = plan_against_card("27b decode", rec, card)
+    return out
+
+
+def dryrun_dist(device):
+    """27c: the meta plan of ``dist_main``'s candidate (full-width
+    ``gpt-paper``, dp2·cp2·tp2·sp, B 8 x S 1024, 8 ranks stacked on one
+    card) against one real candidate train step: collective reports equal
+    by kind, count and bytes; flops equal; the rank-stacked peak within
+    ``DRY_PEAK_TOL``."""
+    import torch
+    from repro_torch.configs.base import InputShape, get_config
+    from repro_torch.core.collector import named_params
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.launch.dryrun import dryrun_candidate
+    from repro_torch.launch.hlo import collective_report
+    from repro_torch.models.model import Model
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.parallel.api import (ParallelConfig,
+                                          make_candidate_train_step)
+    from repro_torch.parallel.mesh import collective_log
+    cfg = get_config("gpt-paper")
+    B, S = 8, 1024
+    pcfg = ParallelConfig(**DIST_MAIN)
+    rec = dryrun_candidate(cfg, InputShape("27c", S, B, "train"), pcfg)
+    floor = held(device)
+    model = Model(cfg, seed=0, device=device)
+    step, p0, o0 = make_candidate_train_step(
+        cfg, pcfg, named_params(model), AdamW(lr=1e-4), device=device)
+    del model
+    batch = {k: v for k, v in make_batch(cfg, B, S, seed=0,
+                                         device=device).items()
+             if k in ("tokens", "labels")}
+    calls = []
+
+    def logged():                    # the first of card_run's two calls
+        with collective_log() as c:
+            out = step(p0, o0, batch)
+        calls.append(c)
+        return out
+    res, card = card_run(device, logged, floor)
+    calls = calls[0]
+    loss = float(res[0].loss)
+    del res
+    report = collective_report(calls)
+    row = plan_against_card("27c candidate step (rank-stacked)", rec, card,
+                            plan_peak=rec["rank_stacked_peak_bytes"])
+    log(f"27c collectives, card: {json.dumps(report)}")
+    if report != rec["collectives"]:
+        raise AssertionError(f"27c: the meta report {rec['collectives']} "
+                             f"is not the card's {report}")
+    if not math.isfinite(loss):
+        raise AssertionError(f"27c loss {loss}")
+    torch.cuda.empty_cache()
+    return dict(row, collectives=report["total"], loss=loss)
+
+
+def dryrun_cli():
+    """27d: ``python -m repro_torch.launch.dryrun`` on each of ``DRY_CLI``,
+    all at once, must exit 0; each pair's per-device GiB logged against
+    80 GB."""
+    import tempfile
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", *argv,
+             "--out", os.path.join(d, f"{i}.json")], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True, env=env, cwd=ROOT)
+            for i, argv in enumerate(DRY_CLI)]
+        recs = []
+        try:
+            for i, (argv, p) in enumerate(zip(DRY_CLI, procs)):
+                stdout, stderr = p.communicate(timeout=300)
+                secs = time.perf_counter() - t0
+                log(f"--- dryrun {' '.join(argv)}: rc {p.returncode} after "
+                    f"{secs:.2f} s\n" + stdout.strip())
+                if p.returncode != 0:
+                    raise AssertionError(f"dryrun {argv}: rc {p.returncode}"
+                                         f"\n{stderr[-3000:]}")
+                with open(os.path.join(d, f"{i}.json")) as f:
+                    recs += [(r, secs) for r in json.load(f)]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, secs in recs:
+            gib = r["per_device"]["peak_bytes"] / 2**30
+            out[f"{r['arch']} {r['shape']} "
+                f"{'x'.join(map(str, r['mesh'].values()))}"] = dict(
+                    seconds=secs, peak_gib=gib, fits_80gb=gib * 2**30 <= 80e9,
+                    bound=r["bound"])
+    log("27d per device against 80 GB: " + json.dumps(out))
+    return out
+
+
+def dryrun_phases(device, phase):
+    """Phases 27a-27d."""
+    import torch
+    out = {}
+    for name, fn in (("dryrun_train", lambda: dryrun_train(device)),
+                     ("dryrun_serve", lambda: dryrun_serve(device)),
+                     ("dryrun_candidate", lambda: dryrun_dist(device)),
+                     ("dryrun_cli", dryrun_cli)):
+        out[name] = phase(name, fn)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4422,6 +4726,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     trained = train_phases(dev, phase)
+    gc.collect()
+    torch.cuda.empty_cache()
+    dryrun_phases(dev, phase)
     if failures:
         log(f"FAILED phases: {failures}")
         return 1

@@ -2,10 +2,13 @@
 ``repro/configs/base.py``.
 
 ``InputShape``, ``INPUT_SHAPES``, ``MoEConfig``, ``MLAConfig``,
-``SSMConfig`` and ``HybridConfig`` are copied whole; ``ArchConfig`` has
-every field of the reference's but its TPU lowering switches
-(``scan_layers``, ``remat``, ``remat_policy``), which nothing in the port
-reads.  ``reduced()`` gives the same CPU-smoke variant as the reference,
+``SSMConfig``, ``HybridConfig`` and ``ArchConfig`` are copied whole,
+with the reference's defaults.  The port keeps its parameters per layer
+and never scans, but it reads ``scan_layers`` and ``remat`` as the
+reference does: a segment the reference would scan (``scan_layers`` and
+more than one layer) runs each block under activation checkpointing when
+``remat`` is set (``models/model.Model.apply_blocks``).  ``reduced()``
+gives the same CPU-smoke variant as the reference (both switches off),
 ``supports_shape`` the same verdicts, and ``list_configs`` the same eleven
 names.
 """
@@ -105,9 +108,12 @@ class ArchConfig:
     n_image_tokens: int = 0     # vlm: patch tokens per sample (anyres tiles flattened)
     audio_dim: int = 0          # audio: incoming frame-feature dim
 
-    # numerics
+    # numerics / lowering
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
+    scan_layers: bool = True    # the reference scans stacked layers
+    remat: bool = True
+    remat_policy: str = "full"  # "full" | "dots" (keep matmul outputs)
 
     def __post_init__(self):
         if self.d_head == 0:
@@ -171,6 +177,8 @@ class ArchConfig:
             n_image_tokens=(min(self.n_image_tokens, 16)
                             if self.n_image_tokens else 0),
             audio_dim=min(self.audio_dim, 64) if self.audio_dim else 0,
+            scan_layers=False,
+            remat=False,
             compute_dtype="float32",
             param_dtype="float32",
             **kw,

@@ -14,5 +14,7 @@ CONFIG = register(ArchConfig(
     d_ff=2048,
     vocab=50304,
     tie_embeddings=True,
+    scan_layers=False,
+    remat=False,
     source="TTrace paper §6 (Megatron GPT)",
 ))

@@ -12,6 +12,20 @@ registered once, as ``shared_attn``, and applied at each shared segment
 under that segment's scope (``shared_attn_{g}``): its gradients sum the
 uses.  Sharding constraints have no counterpart on one card.
 
+Rematerialization follows the reference's ``scan`` + ``jax.checkpoint``:
+a segment the reference scans (``Segment.scan``: ``cfg.scan_layers`` and
+more than one layer) runs each block under ``torch.utils.checkpoint``
+when ``cfg.remat`` is set, grad is on and the trace context is off
+(``remat_policy="dots"`` keeps the outputs of the 2-D matmuls, the
+reference's ``dots_with_no_batch_dims_saveable``).  Recompute is the same
+ops on the same inputs, so the values are bit-identical with and without
+it.  A collecting context keeps every block's taps and does not remat;
+the reference's scanned body gets no context and drops them.
+
+``Model(cfg, device="meta")`` builds every leaf on the meta device (the
+dry run's, ``launch/dryrun.py``): the same names, shapes and dtypes as a
+CPU build, and nothing allocated.
+
 Decode (``init_cache`` / ``decode_step``): caches are per-layer lists under
 each segment's name (``{"layers": [cache of layer 0, ...]}``; each use of
 the shared block has its own, ``{"shared_attn_{g}": [cache]}``), the
@@ -26,12 +40,17 @@ keeps the reference's unused ``embedding.word_embeddings``.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 import math
 from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
@@ -57,31 +76,36 @@ class Segment:
     n: int             # number of layers in this segment
     layer0: int        # global index of the first layer (canonical naming)
     shared: bool = False  # params live under the shared key, not per-segment
+    scan: bool = False    # the reference scans it (remat applies)
 
 
 def build_plan(cfg: ArchConfig) -> list[Segment]:
     L = cfg.n_layers
+    sc = cfg.scan_layers
     if cfg.arch_type in ("dense", "vlm", "audio", "moe") and \
             cfg.attn not in ("full", "swa", "mla"):
         raise NotImplementedError(
             f"{cfg.name}: attention {cfg.attn!r} is not ported yet")
     if cfg.arch_type in ("dense", "vlm", "audio"):
-        return [Segment("layers", "attn_mlp", L, 0)] if L else []
+        return ([Segment("layers", "attn_mlp", L, 0, scan=sc and L > 1)]
+                if L else [])
     if cfg.arch_type == "moe":
         nd = min(cfg.moe.n_dense_layers, L)
         segs = [Segment("dense_layers", "attn_dense_mlp", nd, 0)] if nd else []
         if L - nd > 0:
-            segs.append(Segment("layers", "attn_moe", L - nd, nd))
+            segs.append(Segment("layers", "attn_moe", L - nd, nd,
+                                scan=sc and L - nd > 1))
         return segs
     if cfg.arch_type == "ssm":
-        return [Segment("layers", "rwkv", L, 0)]
+        return [Segment("layers", "rwkv", L, 0, scan=sc and L > 1)]
     if cfg.arch_type == "hybrid":
         # groups of attn_every mamba layers, each full one followed by a
         # use of the shared block; a partial last group has none
         k, segs, i, g = cfg.hybrid.attn_every, [], 0, 0
         while i < L:
             n = min(k, L - i)
-            segs.append(Segment(f"mamba{g}", "mamba", n, i))
+            segs.append(Segment(f"mamba{g}", "mamba", n, i,
+                                scan=sc and n > 1))
             i += n
             if n == k and cfg.hybrid.shared_attn:
                 segs.append(Segment(f"shared_attn_{g}", "shared_attn", 1, i,
@@ -250,6 +274,26 @@ def embed_tokens(w, tokens, cdtype, ctx=None):
     return h
 
 
+# the outputs of the matmuls without batch dims: the reference's
+# ``dots_with_no_batch_dims_saveable``
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _keep_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_context(policy: str):
+    """``checkpoint``'s ``context_fn`` for ``cfg.remat_policy``."""
+    if policy == "full":
+        return noop_context_fn
+    if policy == "dots":
+        return functools.partial(create_selective_checkpoint_contexts,
+                                 _keep_dots)
+    raise ValueError(f"unknown remat_policy {policy!r}")
+
+
 class Model(nn.Module):
     """Parameters are drawn from a ``torch.Generator`` seeded with ``seed``
     (on the CPU, so one seed gives one model on every device) and live on
@@ -258,6 +302,14 @@ class Model(nn.Module):
     def __init__(self, cfg: ArchConfig, *, seed: int = 0, device="cuda"):
         super().__init__()
         dev = resolve_device(device)
+        # on meta every leaf is made there; elsewhere on the CPU, then moved
+        with (torch.device("meta") if dev.type == "meta"
+              else contextlib.nullcontext()):
+            self._build(cfg, seed)
+        if dev.type != "meta":
+            self.to(dev)
+
+    def _build(self, cfg: ArchConfig, seed: int):
         self.cfg = cfg
         self.plan = build_plan(cfg)
         dtype = getattr(torch, cfg.param_dtype)
@@ -290,7 +342,6 @@ class Model(nn.Module):
                     for _ in range(seg.n)))
             elif not hasattr(self, "shared_attn"):
                 self.shared_attn = make_block(gen, cfg, seg.kind, dtype)
-        self.to(dev)
 
     def scoped_blocks(self, seg: Segment):
         """``(tap scope, block)`` of each layer of ``seg``: ``layers.{li}``,
@@ -333,12 +384,21 @@ class Model(nn.Module):
         """``(final_norm_out, aux)``: ``aux`` sums the blocks' MoE
         load-balance losses (f32 zero without MoE blocks)."""
         ctx = ensure_ctx(ctx)
+        remat = (self.cfg.remat and ctx.mode == "off"
+                 and torch.is_grad_enabled())
         aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
         for seg in self.plan:
             for scope, block in self.scoped_blocks(seg):
                 with ctx.scope(scope):
-                    h, aux = block(h, ctx, use_kernel=use_kernel,
-                                   precision=precision)
+                    if remat and seg.scan:
+                        h, aux = checkpoint(
+                            block, h, ctx, use_kernel=use_kernel,
+                            precision=precision, use_reentrant=False,
+                            preserve_rng_state=False,
+                            context_fn=_remat_context(self.cfg.remat_policy))
+                    else:
+                        h, aux = block(h, ctx, use_kernel=use_kernel,
+                                       precision=precision)
                 if aux is not None:
                     aux_total = aux_total + aux
         h = rmsnorm(self.final_norm, h)

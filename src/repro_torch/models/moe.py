@@ -5,9 +5,13 @@ Dispatch uses the reference's sort-based capacity layout: token-expert
 assignments are sorted by expert id (stably, so an expert's tokens keep
 their order), each expert processes a fixed-capacity ``(E, C, d)`` buffer
 through one batched matmul, and overflow assignments are dropped
-(``capacity_factor`` sets C).  The port runs the reference's single-group
-path (``G == 1``): it has no sharding context, and
-``sharding/rules.dispatch_groups`` gives 1 without one.
+(``capacity_factor`` sets C).  As in the reference, the tokens are split
+into ``G = sharding/rules.dispatch_groups(T, E)`` groups, each routed with
+its own capacity: one group without a sharding context, one a data shard
+under ``rules.activate`` when the experts divide the model axis.  Per-group
+capacities drop other tokens than one global capacity, so G changes
+values; the aux loss stays global.  The port's entry points run one
+device's program, whose tokens are one data shard: one group.
 
 Every (expert, slot) of the buffer holds at most one assignment, and every
 kept assignment sits in exactly one slot, so the dispatch and the combine
@@ -27,6 +31,7 @@ from torch import nn
 
 from repro_torch.core.tap import ensure_ctx
 from repro_torch.models.layers import SwiGLUMLP, dense_init
+from repro_torch.sharding import rules
 
 
 def router_topk(logits, top_k):
@@ -143,21 +148,35 @@ def dispatch_combine(xt, top_p, top_e, experts: dict, n_experts: int,
     first local expert).
 
     ``xt`` ``(R, T, d)`` in the compute dtype; ``top_p``/``top_e``
-    ``(R, T, k)``; ``experts`` leaves ``(R, El, ...)``.  Returns the f32
-    ``(R, T, d)`` sum of each token's kept, weighted expert outputs."""
+    ``(R, T, k)``; ``experts`` leaves ``(R, El, ...)``, one set a routing,
+    or ``(El, ...)``, one set for every routing (the grouped dispatch:
+    each expert's ``R * cap`` rows go through one matmul).  Returns the
+    f32 ``(R, T, d)`` sum of each token's kept, weighted expert
+    outputs."""
     R, T, d = xt.shape
     k = top_e.shape[-1]
-    El = experts["gate"].shape[1]
+    shared = experts["gate"].dim() == 3
+    El = experts["gate"].shape[-3]
     f = experts["gate"].shape[-1]
     slot, src, _ = dispatch_maps(top_e, n_experts, cap, e0=e0, n_local=El)
     xa = xt[:, :, None, :].expand(R, T, k, d).reshape(R * T * k, d)
-    buf = _Route.apply(xa, src, slot).reshape(R * El, cap, d)
+    buf = _Route.apply(xa, src, slot)
     dt = xt.dtype
-    gate = experts["gate"].to(dt).reshape(R * El, d, f)
-    up = experts["up"].to(dt).reshape(R * El, d, f)
-    down = experts["down"].to(dt).reshape(R * El, f, d)
+    if shared:
+        # (R, El, C, d) -> (El, R * C, d); a view at R == 1
+        buf = buf.reshape(R, El, cap, d).transpose(0, 1).reshape(
+            El, R * cap, d)
+        gate, up, down = (experts[n].to(dt) for n in ("gate", "up", "down"))
+    else:
+        buf = buf.reshape(R * El, cap, d)
+        gate = experts["gate"].to(dt).reshape(R * El, d, f)
+        up = experts["up"].to(dt).reshape(R * El, d, f)
+        down = experts["down"].to(dt).reshape(R * El, f, d)
     h = F.silu(torch.bmm(buf, gate)) * torch.bmm(buf, up)
-    out = torch.bmm(h, down).reshape(R * El * cap, d)
+    out = torch.bmm(h, down)
+    if shared:
+        out = out.reshape(El, R, cap, d).transpose(0, 1)
+    out = out.reshape(R * El * cap, d)
     ya = _Route.apply(out, slot, src).reshape(R, T, k, d)
     return (ya.float() * top_p[..., None]).sum(2)
 
@@ -184,9 +203,13 @@ def moe_forward(p: dict, cfg, x, ctx=None):
                             expert_counts(top_e, m.n_experts) / (T * m.top_k),
                             m.n_experts) * m.router_aux_coef
 
-    cap = expert_capacity(T, m)
-    experts = {n: w[None] for n, w in p["experts"].items()}
-    yt = dispatch_combine(xt[None], top_p[None], top_e[None], experts,
+    # grouped capacity dispatch: G routings of T / G tokens each
+    G = rules.dispatch_groups(T, m.n_experts)
+    Tg = T // G
+    cap = expert_capacity(Tg, m)
+    yt = dispatch_combine(xt.reshape(G, Tg, d),
+                          top_p.reshape(G, Tg, m.top_k),
+                          top_e.reshape(G, Tg, m.top_k), p["experts"],
                           m.n_experts, cap)
     y = yt.reshape(B, S, d).to(x.dtype)
     if m.n_shared:

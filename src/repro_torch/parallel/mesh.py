@@ -20,8 +20,17 @@ each collective is an autograd function whose backward is its transpose
 there — ``psum`` -> ``psum``, ``all_gather`` -> ``psum_scatter``,
 ``psum_scatter`` -> ``all_gather``, and ``first`` (rank 0's value on every
 rank) -> the sum of every rank's cotangent into rank 0.
+
+``collective_log()`` records every collective that runs inside it, the
+backward's included, as ``(kind, operand bytes, result bytes)`` of one
+rank: ``psum`` and ``pmax`` as ``"all-reduce"``, ``all_gather`` and
+``first`` as ``"all-gather"``, ``psum_scatter`` and ``first``'s transpose
+as ``"reduce-scatter"`` (``launch/hlo.collective_report`` sums them).  It
+is off by default and changes no value.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -33,6 +42,20 @@ AXIS_DIM = {a: i for i, a in enumerate(RANK_AXES)}
 
 def _axes(axes) -> tuple:
     return (axes,) if isinstance(axes, str) else tuple(axes)
+
+
+_LOG: list | None = None
+
+
+@contextlib.contextmanager
+def collective_log():
+    """Yield the list every mesh's collectives append to while inside."""
+    global _LOG
+    outer, _LOG = _LOG, []
+    try:
+        yield _LOG
+    finally:
+        _LOG = outer
 
 
 class Mesh:
@@ -75,8 +98,8 @@ class Mesh:
         if self.sizes[axis] == 1:
             return x
         g = self._grid(x.detach())
-        return self._flat(g.amax(dim=AXIS_DIM[axis], keepdim=True)
-                          .expand(g.shape))
+        return self._record("all-reduce", x, self._flat(
+            g.amax(dim=AXIS_DIM[axis], keepdim=True).expand(g.shape)))
 
     def all_gather(self, x: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
         """Tiled all-gather: every rank gets the ranks' shards of ``axis``
@@ -101,6 +124,13 @@ class Mesh:
         return _First.apply(x, self, axis)
 
     # ---- the raw reductions (no autograd) ------------------------------------
+    def _record(self, kind: str, x: torch.Tensor, out: torch.Tensor
+                ) -> torch.Tensor:
+        if _LOG is not None:
+            _LOG.append((kind, x.numel() // self.n_ranks * x.element_size(),
+                         out.numel() // self.n_ranks * out.element_size()))
+        return out
+
     def _grid(self, x: torch.Tensor) -> torch.Tensor:
         return x.reshape(self.shape + tuple(x.shape[1:]))
 
@@ -121,31 +151,32 @@ class Mesh:
         shape = g.shape
         for a in axes:
             g = self._sum(g, AXIS_DIM[a])
-        return self._flat(g.expand(shape))
+        return self._record("all-reduce", x, self._flat(g.expand(shape)))
 
     def _all_gather(self, x, axis, dim):
         g = self._grid(x)
         d = AXIS_DIM[axis]
         cat = torch.cat(g.unbind(d), dim=2 + dim).unsqueeze(d)
-        return self._flat(cat.expand(g.shape[:d] + (self.sizes[axis],)
-                                     + cat.shape[d + 1:]))
+        return self._record("all-gather", x, self._flat(cat.expand(
+            g.shape[:d] + (self.sizes[axis],) + cat.shape[d + 1:])))
 
     def _psum_scatter(self, x, axis, dim):
         d = AXIS_DIM[axis]
         s = self._sum(self._grid(x), d).squeeze(d)
-        return self._flat(torch.stack(s.chunk(self.sizes[axis], dim=2 + dim),
-                                      dim=d))
+        return self._record("reduce-scatter", x, self._flat(torch.stack(
+            s.chunk(self.sizes[axis], dim=2 + dim), dim=d)))
 
     def _first(self, x, axis):
         g = self._grid(x)
-        return self._flat(g.narrow(AXIS_DIM[axis], 0, 1).expand(g.shape))
+        return self._record("all-gather", x, self._flat(
+            g.narrow(AXIS_DIM[axis], 0, 1).expand(g.shape)))
 
     def _first_transpose(self, g, axis):
         d = AXIS_DIM[axis]
         grid = self._grid(g)
         out = torch.zeros_like(grid)
         out.narrow(d, 0, 1).copy_(self._sum(grid, d))
-        return self._flat(out)
+        return self._record("reduce-scatter", g, self._flat(out))
 
 
 class _PSum(torch.autograd.Function):

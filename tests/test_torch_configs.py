@@ -5,7 +5,8 @@ come from the reference and cross as numpy; on the CPU the port takes its
 plain versions.
 
 * For every config of the reference, the port's ``ArchConfig`` equals the
-  reference's on every shared field, full and ``.reduced()``; both give
+  reference's on every field (``scan_layers``, ``remat`` and
+  ``remat_policy`` included), full and ``.reduced()``; both give
   the same ``list_configs()``, ``INPUT_SHAPES``, ``is_decoder`` and
   ``supports_shape`` over the 11 x 4 (config, shape) pairs.
 * The five configs ``DENSE_OPTIONS``, reduced: ``named_parameters()`` is
@@ -50,8 +51,6 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 import chip_smoke  # noqa: E402
 
 ALL = tuple(jbase.list_configs())
-# the reference's fields the port leaves out: TPU lowering switches
-LOWERING = {"scan_layers", "remat", "remat_policy"}
 # (config, parameter, how it is broken, the module the check must name)
 CONTROLS = (
     ("qwen3-32b", "layers.1.self_attention.q_norm", "x2",
@@ -84,7 +83,7 @@ def test_config_equals_the_reference(name, reduced):
     if reduced:
         j, t = j.reduced(), t.reduced()
     fields = {f.name for f in dataclasses.fields(t)}
-    assert fields == {f.name for f in dataclasses.fields(j)} - LOWERING
+    assert fields == {f.name for f in dataclasses.fields(j)}
     for f in sorted(fields):
         assert _value(getattr(t, f)) == _value(getattr(j, f)), f
 

@@ -41,7 +41,7 @@ REFUSED = ("jax", "jaxlib", "repro", "ml_dtypes")
 
 def test_importing_every_module_loads_no_jax_and_no_repro():
     mods = _modules()
-    assert "repro_torch.core.harness" in mods and len(mods) >= 69
+    assert "repro_torch.core.harness" in mods and len(mods) >= 74
     assert {"repro_torch.precision.fp8", "repro_torch.kernels.fp8_matmul",
             "repro_torch.bugs.registry", "repro_torch.models.ssm",
             "repro_torch.kernels.ssm_scan",
@@ -59,7 +59,9 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
             "repro_torch.launch.supervise", "repro_torch.parallel.pp",
             "repro_torch.parallel.pp1f1b", "repro_torch.core.merger",
             "repro_torch.core.canonical",
-            "repro_torch.launch.train"} <= set(mods)
+            "repro_torch.launch.train", "repro_torch.launch.dryrun",
+            "repro_torch.launch.hlo", "repro_torch.launch.mesh",
+            "repro_torch.sharding.rules"} <= set(mods)
     code = ("import sys\n"
             + "".join(f"import {m}\n" for m in mods)
             + f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "

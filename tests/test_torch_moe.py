@@ -10,6 +10,10 @@ blocks of ``models.model``) against the JAX package's, on the CPU.
   ``mixtral-8x7b``, dropless and at ``capacity_factor`` 0.5, where
   capacity drops assignments (rtol 1e-5, atol 1e-6 of the largest value;
   the same f32 products in another summation order).
+* Under ``sharding.rules.activate`` on a (4, 2) mesh the dispatch runs
+  per data-shard group (G = 4, a capacity each) and matches the
+  reference's grouped dispatch under its ``rules.activate`` on a real jax
+  mesh: y, aux and gradients, at the same tolerance.
 * ``dispatch_maps`` is a partial permutation, the reference's
   ``pos < cap`` rule, and its inverse; two runs are bit-identical.
 * ``Model.loss`` and the whole trace of reduced ``mixtral-8x7b`` at S 128,
@@ -218,6 +222,59 @@ def test_moe_forward_matches_the_reference(factor):
         assert dropped > 0, "capacity drops nothing: the keep mask is idle"
     else:
         assert dropped == 0
+
+
+def test_grouped_dispatch_matches_the_reference(forced_devices):
+    """Under ``rules.activate`` on a (4, 2) ("data", "model") mesh both
+    packages split the 64 tokens into G = 4 dispatch groups of 16, each
+    with its own capacity (4 at factor 0.5, against 16 for one group), so
+    other assignments drop; y, aux and every gradient match the
+    reference's, and y differs from the one-group dispatch."""
+    from repro.sharding import rules as jrules
+    from repro_torch.launch.mesh import ShapeMesh
+    from repro_torch.sharding import rules as trules
+    jcfg, tcfg = _moe_cfgs(0.5)
+    p = jax_setup(NAME)[2]["layers"][0]["mlp"]
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((2, 32, jcfg.d_model)).astype(np.float32)
+    g = rng.standard_normal(x.shape).astype(np.float32)
+    auto = jax.sharding.AxisType.Auto        # with_sharding_constraint's
+    jmesh = jax.make_mesh((4, 2), ("data", "model"), axis_types=(auto, auto))
+    tmesh = ShapeMesh(("data", "model"), (4, 2))
+
+    def jf(x, p):
+        y, aux = jmoe.moe_forward(p, jcfg, x)
+        return jnp.sum(y * g) + aux, (y, aux)
+    with jrules.activate(jmesh):
+        assert jrules.dispatch_groups(64, 4) == 4
+        (_, (jy, jaux)), (jgx, jgp) = jax.jit(jax.value_and_grad(
+            jf, argnums=(0, 1), has_aux=True))(jnp.asarray(x), p)
+
+    def port(grouped):
+        tp = {"router": torch.tensor(np.asarray(p["router"])),
+              "experts": {n: torch.tensor(np.asarray(v))
+                          for n, v in p["experts"].items()}}
+        for t in [tp["router"], *tp["experts"].values()]:
+            t.requires_grad_()
+        xt = torch.tensor(x, requires_grad=True)
+        if grouped:
+            with trules.activate(tmesh):
+                assert trules.dispatch_groups(64, 4) == 4
+                ty, taux = tmoe.moe_forward(tp, tcfg, xt)
+        else:
+            ty, taux = tmoe.moe_forward(tp, tcfg, xt)
+        (torch.sum(ty * torch.tensor(g)) + taux).backward()
+        return ty, taux, xt, tp
+
+    ty, taux, xt, tp = port(True)
+    _close(ty.detach().numpy(), jy, "y")
+    _close(taux.detach().numpy(), jaux, "aux")
+    _close(xt.grad.numpy(), jgx, "dx")
+    _close(tp["router"].grad.numpy(), jgp["router"], "drouter")
+    for n in ("gate", "up", "down"):
+        _close(tp["experts"][n].grad.numpy(), jgp["experts"][n], n)
+    one = port(False)[0]
+    assert (one - ty).abs().max() > 1e-3, "grouping dropped nothing new"
 
 
 def test_two_runs_are_bit_identical():

@@ -15,7 +15,10 @@ gradient entry near zero into a whole update of either sign).  At ``n_micro`` 1 
 is bit-identical to ``collector.make_trace_step``.  ``default_n_micro``,
 ``input_specs`` and ``cache_specs`` agree with the reference's; resume
 is bit-identical at the step level; the CLI trains, checks, saves and
-resumes on the CPU, and the JAX package reads its checkpoint.
+resumes on the CPU, and the JAX package reads its checkpoint.  With
+``remat`` on (``scan_layers`` set, as the full configs have them) two
+steps are bit-identical to ``remat`` off under both policies, and a
+collecting trace is unchanged.
 """
 import dataclasses
 import functools
@@ -43,8 +46,10 @@ from repro_torch.checkpoint.store import (flatten_named,  # noqa: E402
                                           load_checkpoint, save_checkpoint)
 from repro_torch.configs.base import INPUT_SHAPES  # noqa: E402
 from repro_torch.configs.base import get_config  # noqa: E402
-from repro_torch.core.collector import (make_trace_step,  # noqa: E402
-                                        named_params)
+from repro_torch.core.collector import (SECTION_FIELDS,  # noqa: E402
+                                        make_trace_step, named_params,
+                                        to_numpy, trace_train_step)
+from repro_torch.interop import params_from_jax  # noqa: E402
 from repro_torch.core.harness import inputs_on  # noqa: E402
 from repro_torch.data.synthetic import make_batch  # noqa: E402
 from repro_torch.launch import steps as TS  # noqa: E402
@@ -183,6 +188,53 @@ def test_single_microbatch_is_bit_identical_to_the_trace_step():
                                   if isinstance(fa[k], torch.Tensor)
                                   else fa[k] == fb[k])]
     assert not diff, diff[:5]
+
+
+def _remat_model(name, **kw):
+    """The reduced model rebuilt with ``kw`` set on its config (the reduced
+    config scans nothing), loaded with the reference's parameters."""
+    cfg = dataclasses.replace(configs(name)[1], **kw)
+    return params_from_jax(jax_setup(name)[3], Model(cfg, device="cpu"))
+
+
+@pytest.mark.parametrize("policy", ["full", "dots"])
+def test_remat_is_bit_identical(policy):
+    """Two steps at ``n_micro`` 2 with ``remat`` on (``scan_layers``, the
+    reference's condition) and off give the same params, opt state and
+    metrics bit for bit; remat recomputes (more flops), and a collecting
+    trace, which keeps its taps and does not remat, is unchanged."""
+    from torch.utils.flop_counter import FlopCounterMode
+    name = "tinyllama-1.1b"
+    batches = [inputs_on(torch.device("cpu"), b)[0] for b in _batches(name)]
+    runs, flops, traces = {}, {}, {}
+    for remat in (False, True):
+        model = _remat_model(name, scan_layers=True, remat=remat,
+                             remat_policy=policy)
+        assert [s.scan for s in model.plan] == [True]
+        opt = AdamW(lr=warmup_cosine(*LR))
+        p = {k: v.detach().clone() for k, v in named_params(model).items()}
+        st = opt.init(p)
+        step = TS.make_train_step(model, opt, n_micro=2)
+        out = []
+        for i, b in enumerate(batches[:2]):
+            with FlopCounterMode(display=False) as fc:
+                p, st, m = step(p, st, b)
+            out.append(m)
+        flops[remat] = fc.get_total_flops()
+        runs[remat] = flatten_named((p, st, out))
+        traces[remat] = trace_train_step(model, batches[0])[0]
+    assert flops[True] > flops[False]
+    a, b = runs[False], runs[True]
+    assert list(a) == list(b)
+    diff = [k for k in a if not (torch.equal(a[k], b[k])
+                                 if isinstance(a[k], torch.Tensor)
+                                 else a[k] == b[k])]
+    assert not diff, diff[:5]
+    for f in SECTION_FIELDS:
+        ta, tb = getattr(traces[False], f), getattr(traces[True], f)
+        assert list(ta) == list(tb), f
+        assert all(np.array_equal(to_numpy(ta[k]), to_numpy(tb[k]))
+                   for k in ta), f
 
 
 def test_a_batch_that_does_not_split_is_refused():
