@@ -1,0 +1,7 @@
+"""``candidate_s``: seconds of a check's candidate step (``TTraceResult.seconds["candidate"]``,
+synchronized), the mean over the window's checks."""
+from port_bench.metrics._checks import layer_seconds
+
+
+def read(rec):
+    return layer_seconds(rec, "candidate")

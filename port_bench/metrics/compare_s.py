@@ -1,0 +1,7 @@
+"""``compare_s``: seconds of a check's compare step (``TTraceResult.seconds["compare"]``,
+synchronized), the mean over the window's checks."""
+from port_bench.metrics._checks import layer_seconds
+
+
+def read(rec):
+    return layer_seconds(rec, "compare")
