@@ -14,6 +14,7 @@ from typing import Optional
 import numpy as np
 
 from repro_torch.core import canonical as C
+from repro_torch.core import spans
 from repro_torch.core.collector import Trace
 from repro_torch.core.generator import generate
 from repro_torch.core.relerr_engine import _to_rel_err, section_sq_norms
@@ -216,17 +217,20 @@ def localize_with_rewrites(run_ref, run_cand, batch, ref_trace: Trace,
     ``run_ref/run_cand(batch, rewrites) -> Trace``.
     """
     rewrites = {}
-    for name in ref_trace.activations:
-        if not name.endswith("/input"):
-            continue
-        if scope_filter is not None and not scope_filter(name):
-            continue
-        a = ref_trace.activations[name]     # host copy of module inputs only
-        cid = C.tap_to_id(name, C.KIND_ACT)
-        scale = float(np.std(a)) or 1.0
-        rewrites[name] = generate(cid, a.shape, str(a.dtype), scale=scale)
-    t_ref = run_ref(batch, rewrites)
-    t_cand = run_cand(batch, rewrites)
+    with spans.span("rewrites"):
+        for name in ref_trace.activations:
+            if not name.endswith("/input"):
+                continue
+            if scope_filter is not None and not scope_filter(name):
+                continue
+            a = ref_trace.activations[name]     # host copy of module inputs
+            cid = C.tap_to_id(name, C.KIND_ACT)
+            scale = float(np.std(a)) or 1.0
+            rewrites[name] = generate(cid, a.shape, str(a.dtype), scale=scale)
+    with spans.span("run"):
+        t_ref = run_ref(batch, rewrites)
+    with spans.span("run"):
+        t_cand = run_cand(batch, rewrites)
     rep = compare_traces(t_ref, t_cand, thr, kinds=(C.KIND_ACT,))
     # under rewrites every flagged *output* names its buggy module directly;
     # report the FIRST one in forward execution order

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import canonical as C
+from repro_torch.core import spans
 from repro_torch.core.tap import TraceContext
 
 
@@ -47,6 +48,8 @@ def to_numpy(x) -> np.ndarray:
     if x.is_floating_point() and x.dtype not in (torch.float32, torch.float64,
                                                  torch.float16):
         x = x.float()
+    if x.device.type != "cpu":
+        spans.count("d2h_bytes", spans.nbytes(x))
     return x.cpu().numpy()
 
 

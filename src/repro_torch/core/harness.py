@@ -17,7 +17,6 @@ A *runner* is ``fn(batch, rewrites) -> Trace``.  The harness performs:
 from __future__ import annotations
 
 import contextlib
-import time
 from dataclasses import dataclass, field
 from typing import Callable, Optional
 
@@ -25,6 +24,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.core import spans
 from repro_torch.core.checker import (Report, compare_traces,
                                       localize_with_rewrites)
 from repro_torch.core.collector import (SECTION_FIELDS, Trace,
@@ -40,7 +40,8 @@ class TTraceResult:
     thresholds: Thresholds
     reference: Trace
     candidate: Trace
-    seconds: dict = field(default_factory=dict)   # wall time of each step
+    seconds: dict = field(default_factory=dict)   # each step's, each span's
+    counts: dict = field(default_factory=dict)    # calls, bytes, allocator
 
     @property
     def passed(self) -> bool:
@@ -61,8 +62,10 @@ class TTraceResult:
 
 
 def _on_device(v, device: torch.device) -> torch.Tensor:
-    return (v if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v))
-            ).to(device)
+    t = v if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v))
+    if t.device.type == "cpu" and device.type != "cpu":
+        spans.count("h2d_bytes", spans.nbytes(t))
+    return t.to(device)
 
 
 def runner_device(model, device) -> torch.device:
@@ -159,6 +162,7 @@ def _to_host(sec, name) -> Optional[torch.device]:
     x = sec.raw(name)
     if not isinstance(x, torch.Tensor) or x.device.type == "cpu":
         return None
+    spans.count("d2h_bytes", spans.nbytes(x))
     sec[name] = x.cpu()
     return x.device
 
@@ -167,14 +171,18 @@ def _to_host(sec, name) -> Optional[torch.device]:
 def _on_host(sections):
     """Every device leaf of ``sections`` on the host for the span of the
     block, back on its device after: frees the device for the
-    localizer's two traced runs."""
-    moved = [(sec, name, dev) for sec in sections for name in list(sec)
-             if (dev := _to_host(sec, name)) is not None]
+    localizer's two traced runs.  Both moves are spans ``moves``."""
+    with spans.span("moves"):
+        moved = [(sec, name, dev) for sec in sections for name in list(sec)
+                 if (dev := _to_host(sec, name)) is not None]
     try:
         yield
     finally:
-        for sec, name, dev in moved:
-            sec[name] = sec.raw(name).to(dev)
+        with spans.span("moves"):
+            for sec, name, dev in moved:
+                x = sec.raw(name)
+                spans.count("h2d_bytes", spans.nbytes(x))
+                sec[name] = x.to(dev)
 
 
 def ttrace_check(reference: Callable, candidate: Callable, batch: dict,
@@ -189,35 +197,34 @@ def ttrace_check(reference: Callable, candidate: Callable, batch: dict,
     Step 5 reads only the reference's activations: every other section
     of the two traces waits on the host while it runs (the time is in
     ``seconds["localize"]``)."""
-    seconds = {}
-    t0 = time.perf_counter()
-    if estimate:
-        thr, ref_trace = estimate_thresholds(reference, batch, eps, margin,
-                                             seed)
-    else:
-        thr = Thresholds(eps=eps, margin=margin)
-        ref_trace = reference(batch, None)
-    _sync()
-    t1 = time.perf_counter()
-    cand_trace = candidate(batch, None)
-    _sync()
-    t2 = time.perf_counter()
-    report = compare_traces(ref_trace, cand_trace, thr)
-    t3 = time.perf_counter()
-    seconds.update(estimate=t1 - t0, candidate=t2 - t1, compare=t3 - t2)
     loc = None
-    if localize and not report.passed:
-        idle = [getattr(tr, f) for tr in (ref_trace, cand_trace)
-                for f in SECTION_FIELDS
-                if tr is cand_trace or f != "activations"]
-        with _on_host(idle):
-            loc = localize_with_rewrites(reference, candidate, batch,
-                                         ref_trace, thr)
-        _sync()
-        seconds["localize"] = time.perf_counter() - t3
+    with spans.check() as log:
+        with spans.span("estimate", alloc=True):
+            if estimate:
+                thr, ref_trace = estimate_thresholds(reference, batch, eps,
+                                                     margin, seed)
+            else:
+                thr = Thresholds(eps=eps, margin=margin)
+                with spans.span("run"):
+                    ref_trace = reference(batch, None)
+            _sync()
+        with spans.span("candidate", alloc=True):
+            cand_trace = candidate(batch, None)
+            _sync()
+        with spans.span("compare", alloc=True):
+            report = compare_traces(ref_trace, cand_trace, thr)
+        if localize and not report.passed:
+            with spans.span("localize", alloc=True):
+                idle = [getattr(tr, f) for tr in (ref_trace, cand_trace)
+                        for f in SECTION_FIELDS
+                        if tr is cand_trace or f != "activations"]
+                with _on_host(idle):
+                    loc = localize_with_rewrites(reference, candidate, batch,
+                                                 ref_trace, thr)
+                _sync()
     return TTraceResult(report=report, localization=loc, thresholds=thr,
                         reference=ref_trace, candidate=cand_trace,
-                        seconds=seconds)
+                        seconds=log.seconds, counts=log.counts)
 
 
 def ttrace_supervise(model, cfg, pcfg, opt, params=None, steps: int = 8,

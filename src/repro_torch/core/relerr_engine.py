@@ -28,6 +28,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core import spans
 from repro_torch.kernels import ops
 from repro_torch.kernels.relerr import pack_device
 
@@ -52,10 +53,12 @@ def _raw(section, name):
 
 
 def _packed_path(leaves_a, leaves_b) -> np.ndarray:
-    a_flat, b_flat, seg_ids, counts = pack_device(leaves_a, leaves_b)
-    out = ops.packed_sq_norms(a_flat, b_flat, seg_ids, counts,
-                              n_segments=len(leaves_a))
-    return out.cpu().numpy().astype(np.float64)
+    with spans.span("pack", alloc=True):
+        a_flat, b_flat, seg_ids, counts = pack_device(leaves_a, leaves_b)
+    with spans.span("reduce"):
+        out = ops.packed_sq_norms(a_flat, b_flat, seg_ids, counts,
+                                  n_segments=len(leaves_a))
+        return out.cpu().numpy().astype(np.float64)
 
 
 def _loop_path(leaves_a, leaves_b) -> np.ndarray:

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import canonical as C
+from repro_torch.core import spans
 from repro_torch.core.collector import Trace, to_numpy
 from repro_torch.core.generator import perturb
 from repro_torch.core.relerr_engine import (_to_rel_err, rel_err_np,
@@ -127,7 +128,9 @@ def _float_keys(batch: dict) -> list[str]:
 def perturbed_batch_or_rewrites(batch: dict, base_trace: Trace,
                                 eps: float, seed: int = 0):
     """Returns (batch', rewrites').  Float model inputs are perturbed in the
-    batch; token-only models are perturbed at the embedding output."""
+    batch; token-only models are perturbed at the embedding output, and
+    the rewrite goes back to the tap's device here, so the perturbed run
+    copies nothing."""
     float_keys = _float_keys(batch)
     if float_keys:
         b2 = dict(batch)
@@ -137,7 +140,14 @@ def perturbed_batch_or_rewrites(batch: dict, base_trace: Trace,
     emb = "embedding/output"
     if emb not in base_trace.activations:
         raise ValueError("no float inputs and no embedding/output tap to perturb")
-    return batch, {emb: perturb(base_trace.activations[emb], eps, seed=seed)}
+    x = perturb(base_trace.activations[emb], eps, seed=seed)
+    tap = base_trace.activations.raw(emb)
+    if isinstance(tap, torch.Tensor):
+        x = torch.as_tensor(x)
+        if tap.device.type != "cpu":
+            spans.count("h2d_bytes", spans.nbytes(x))
+        x = x.to(tap.device)
+    return batch, {emb: x}
 
 
 def estimate_thresholds(run_trace, batch: dict, eps: float,
@@ -155,14 +165,21 @@ def estimate_thresholds(run_trace, batch: dict, eps: float,
     """
     pair = getattr(run_trace, "pair", None)
     if pair is not None and _float_keys(batch):
-        b2, _ = perturbed_batch_or_rewrites(batch, None, eps, seed)
-        t1, t2 = pair({k: np.stack([to_numpy(batch[k]), to_numpy(b2[k])])
-                       for k in batch})
+        with spans.span("perturb"):
+            b2, _ = perturbed_batch_or_rewrites(batch, None, eps, seed)
+        with spans.span("run"):
+            t1, t2 = pair({k: np.stack([to_numpy(batch[k]), to_numpy(b2[k])])
+                           for k in batch})
     else:
-        t1 = run_trace(batch, None)
-        b2, rew = perturbed_batch_or_rewrites(batch, t1, eps, seed)
-        t2 = run_trace(b2, rew)
-    thr = Thresholds(eps=eps, margin=margin, per_tensor=_diff_sections(t1, t2))
+        with spans.span("run"):
+            t1 = run_trace(batch, None)
+        with spans.span("perturb"):
+            b2, rew = perturbed_batch_or_rewrites(batch, t1, eps, seed)
+        with spans.span("run"):
+            t2 = run_trace(b2, rew)
+    with spans.span("sections"):
+        per_tensor = _diff_sections(t1, t2)
+    thr = Thresholds(eps=eps, margin=margin, per_tensor=per_tensor)
     return thr, t1
 
 

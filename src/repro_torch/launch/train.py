@@ -29,6 +29,7 @@ from repro_torch.checkpoint.store import load_checkpoint, save_checkpoint
 from repro_torch.configs.base import get_config
 from repro_torch.core.collector import load_params, named_params
 from repro_torch.core.harness import make_model_runner, ttrace_check
+from repro_torch.core.spans import STEPS
 from repro_torch.data.synthetic import make_batch
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models.model import Model
@@ -53,6 +54,17 @@ def parse_args(argv=None):
                     help="run a TTrace differential check every N steps")
     ap.add_argument("--device", default="cuda")
     return ap.parse_args(argv)
+
+
+def check_line(res) -> str:
+    """A check's step seconds and, on the card, each step's allocator
+    retries (each one frees the allocator's cache)."""
+    steps = ", ".join(f"{k} {res.seconds[k]:.3f} s" for k in STEPS
+                      if k in res.seconds)
+    retries = [f"{k} {res.counts[k + '.alloc_retries']}" for k in STEPS
+               if k + ".alloc_retries" in res.counts]
+    return steps + (f"; alloc retries {', '.join(retries)}" if retries
+                    else "")
 
 
 def main(argv=None):
@@ -104,7 +116,7 @@ def main(argv=None):
             cand = make_model_runner(model, opt, opt_state, device=dev)
             res = ttrace_check(ref, cand, batch, localize=False)
             print(f"  [ttrace] regression check: "
-                  f"{'PASS' if res.passed else 'FAIL'}")
+                  f"{'PASS' if res.passed else 'FAIL'} ({check_line(res)})")
             del ref, cand, res      # the two traces: free them for training
     if args.save:
         save_checkpoint(args.save, (params, opt_state), step=args.steps)
