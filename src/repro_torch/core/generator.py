@@ -54,12 +54,39 @@ def extract_shard(full: np.ndarray, spec: ShardSpec, sizes: dict,
     return np.concatenate(pieces, axis=cdim % full.ndim)
 
 
+# normals drawn a chunk at a time: the float64 draw stays in cache for its
+# cast, where one draw of the whole shape would allocate twice the output
+_CHUNK = 1 << 20
+
+
+def perturb_direction(shape, seed: int = 0, out: np.ndarray | None = None):
+    """The half of ``perturb`` that does not depend on ``x``: the direction
+    ``d`` (float64 normals of the Philox stream for ``seed``, cast to
+    float32, into ``out`` if given) and ``||d||``.  Returns ``(d, nd)``."""
+    rng = _rng(seed ^ 0x9E3779B97F4A7C15)
+    d = np.empty(shape, np.float32) if out is None else out
+    flat = d.reshape(-1)
+    tmp = np.empty(min(_CHUNK, flat.size))
+    for i in range(0, flat.size, _CHUNK):
+        part = tmp[:min(_CHUNK, flat.size - i)]
+        rng.standard_normal(out=part)
+        np.copyto(flat[i:i + part.size], part)
+    return d, np.linalg.norm(d)
+
+
+def perturb_scale(nx, nd, rel_eps: float):
+    """The half of ``perturb`` that depends on ``x`` through ``nx = ||x||``
+    (float32): the scale of ``d``, or None where ``x`` or ``d`` is zero."""
+    if nd == 0 or nx == 0:
+        return None
+    return rel_eps * nx / nd
+
+
 def perturb(x: np.ndarray, rel_eps: float, seed: int = 0) -> np.ndarray:
     """x + dX with ||dX|| = rel_eps * ||x|| (threshold estimation, §5.2)."""
-    rng = _rng(seed ^ 0x9E3779B97F4A7C15)
-    d = rng.standard_normal(x.shape).astype(np.float32)
-    nx = np.linalg.norm(x.astype(np.float32))
-    nd = np.linalg.norm(d)
-    if nd == 0 or nx == 0:
+    d, nd = perturb_direction(x.shape, seed)
+    x32 = x.astype(np.float32)
+    s = perturb_scale(np.linalg.norm(x32), nd, rel_eps)
+    if s is None:
         return x
-    return (x.astype(np.float32) + d * (rel_eps * nx / nd)).astype(x.dtype)
+    return (x32 + d * s).astype(x.dtype)

@@ -93,7 +93,10 @@ def make_model_runner(model, opt=None, opt_state=None,
     Batch leaves and rewrites (numpy or tensors) are moved to ``device``;
     the model's parameters are never changed by a run.  ``run.pair(batch2)``
     collects the two rows of a batch stacked on a leading axis of 2 (the
-    estimate's base and perturbed runs of float-input models).
+    estimate's base and perturbed runs of float-input models);
+    ``run.tap_shape(batch)`` is the shape of the ``embedding/output`` tap
+    a run of a token batch gives, None without tokens (the estimate draws
+    its perturbation during the base run).
     """
     dev = runner_device(model, device)
 
@@ -107,7 +110,14 @@ def make_model_runner(model, opt=None, opt_state=None,
         b2, _ = inputs_on(dev, batch2)
         return trace_pair_step(model, b2, opt=opt, opt_state=opt_state)
 
+    def tap_shape(batch):
+        if "tokens" not in batch:
+            return None
+        return (tuple(np.shape(batch["tokens"]))
+                + (model.embedding.word_embeddings.shape[1],))
+
     run.pair = run_pair
+    run.tap_shape = tap_shape
     return run
 
 

@@ -162,10 +162,10 @@ def span(name: str, alloc: bool = False) -> _Span:
 
 def count(name: str, n: int) -> None:
     """Adds ``n`` to ``<key>.<name>`` of the innermost open span of the
-    check in progress (none outside a check)."""
+    check in progress (none outside a span of a check)."""
     log = _LOG.get()
-    if log is not None and n:
-        log.add(f"{log.open[-1]}.{name}" if log.open else name, n)
+    if log is not None and n and log.open:
+        log.add(f"{log.open[-1]}.{name}", n)
 
 
 def nbytes(x: torch.Tensor) -> int:

@@ -4,7 +4,11 @@
 The reference runs twice — on X and on X + dX with ||dX|| ~= eps * ||X|| —
 and the induced relative error of every traced tensor becomes its
 threshold (times a margin).  Token-input models are perturbed at the
-embedding output through the rewrite mechanism.
+embedding output through the rewrite mechanism.  The perturbation's
+direction depends only on the seed and the tap's shape, so a worker
+thread draws it on the host while the base run holds the device; the
+part that depends on the tap is finished on the tap's device from pinned
+copies, bit for bit ``generator.perturb`` of the tap.
 
 ``make_pair_estimator`` is the supervised loop's re-estimation: built
 once, its ``submit`` dispatches the pair run and the reductions and
@@ -13,6 +17,10 @@ behind it (``diff_sections_async``).
 """
 from __future__ import annotations
 
+import os
+import threading
+import weakref
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -21,7 +29,8 @@ import torch
 from repro_torch.core import canonical as C
 from repro_torch.core import spans
 from repro_torch.core.collector import Trace, to_numpy
-from repro_torch.core.generator import perturb
+from repro_torch.core.generator import (perturb, perturb_direction,
+                                        perturb_scale)
 from repro_torch.core.relerr_engine import (_to_rel_err, rel_err_np,
                                             section_sq_norms, sq_norms_async)
 
@@ -125,6 +134,129 @@ def _float_keys(batch: dict) -> list[str]:
     return [k for k, v in batch.items() if _is_float(v) and k != "loss_mask"]
 
 
+_EMB_TAP = "embedding/output"
+# the tap dtypes to_numpy keeps; it widens every other float to float32
+_HOST_DTYPE = {torch.float16: np.float16, torch.float64: np.float64,
+               torch.float32: np.float32}
+
+# (pid, the one host thread that draws directions): started at first use,
+# and again in a forked child, which has no thread of its parent's
+_WORKER: tuple | None = None
+_WORKER_LOCK = threading.Lock()
+# runner -> (its last token batch's input shapes, the tap shape they gave)
+_SEEN: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
+
+
+def _worker() -> ThreadPoolExecutor:
+    global _WORKER
+    with _WORKER_LOCK:
+        if _WORKER is None or _WORKER[0] != os.getpid():
+            _WORKER = (os.getpid(), ThreadPoolExecutor(
+                1, thread_name_prefix="ttrace-perturb"))
+        return _WORKER[1]
+
+
+def _input_shapes(batch: dict) -> tuple:
+    return tuple((k, tuple(np.shape(v))) for k, v in batch.items())
+
+
+def _host_f32(shape, pinned: bool) -> torch.Tensor:
+    """A float32 host buffer; pinned ones come from torch's pinned-memory
+    cache, so every check after the first reuses the same blocks."""
+    return torch.empty(shape, dtype=torch.float32, pin_memory=pinned)
+
+
+def _draw(buf: torch.Tensor, seed: int):
+    return perturb_direction(buf.shape, seed, out=buf.numpy())[1]
+
+
+def _prefetch(run_trace, batch: dict, seed: int):
+    """Starts drawing the direction of a token batch's perturbation on the
+    worker thread, for the tap shape the base run should give: the shape
+    the runner's last estimate saw for a batch of the same input shapes,
+    else the runner's ``tap_shape(batch)``.  Returns ``(buffer, future of
+    ||d||)``, or None for float inputs or with no shape to draw for."""
+    if _float_keys(batch):
+        return None
+    try:
+        seen = _SEEN.get(run_trace)
+    except TypeError:               # a runner that takes no weak reference
+        seen = None
+    hint = getattr(run_trace, "tap_shape", None)
+    if seen and seen[0] == _input_shapes(batch):
+        shape = seen[1]
+    else:
+        shape = None if hint is None else hint(batch)
+    if shape is None:
+        return None
+    buf = _host_f32(shape, torch.cuda.is_initialized())
+    return buf, _worker().submit(_draw, buf, seed)
+
+
+def _remember(run_trace, batch: dict, base_trace: Trace) -> None:
+    if _EMB_TAP in base_trace.activations:
+        try:
+            _SEEN[run_trace] = (_input_shapes(batch),
+                                base_trace.activations.shape_of(_EMB_TAP))
+        except TypeError:
+            pass
+
+
+def _tap_rewrites(base_trace: Trace, eps: float, seed: int,
+                  prefetched=None) -> dict:
+    """``{embedding/output: perturb(to_numpy(tap), eps, seed)}`` bit for bit,
+    as a tensor on the tap's device.  ``x`` comes to the host once, for
+    ``||x||``; ``d`` (``prefetched`` if it was drawn for the tap's shape,
+    else drawn now) goes up into the rewrite's own storage, which then
+    takes ``d * s + x`` as two float32 operations (numpy's ``x + d * s``:
+    the sum commutes)."""
+    if _EMB_TAP not in base_trace.activations:
+        raise ValueError("no float inputs and no embedding/output tap to perturb")
+    x = torch.as_tensor(base_trace.activations.raw(_EMB_TAP)).detach()
+    cuda = x.device.type != "cpu"
+    x32 = x.float()                 # as to_numpy and perturb take it
+    if cuda:
+        xh = _host_f32(x.shape, True)
+        xh.copy_(x32, non_blocking=True)
+        torch.cuda.current_stream(x.device).synchronize()
+        spans.count("d2h_bytes", spans.nbytes(xh))
+    else:
+        xh = x32
+    if x.dtype != torch.float64:
+        # the add widens the tap exactly: no f32 copy of a bf16 tap stays
+        # beside the rewrite
+        x32 = x
+    nx = np.linalg.norm(xh.numpy())
+    if prefetched is not None and tuple(prefetched[0].shape) == tuple(x.shape):
+        spans.count("prefetched", 1)
+        dh, fut = prefetched
+        # a span's key is <step>.<name>: estimate.perturb.wait
+        with spans.span("perturb.wait"):
+            nd = fut.result()
+    else:
+        spans.count("redrawn", 1)
+        dh = _host_f32(x.shape, cuda)
+        nd = _draw(dh, seed)
+    s = perturb_scale(nx, nd, eps)
+    dt = x.dtype if x.dtype in _HOST_DTYPE else torch.float32
+    if s is not None and np.result_type(np.float32, s) != np.float32:
+        # numpy combines in the scale's wider dtype: so does this
+        rew = torch.from_numpy((xh.numpy() + dh.numpy() * s)
+                               .astype(_HOST_DTYPE[dt]))
+        if cuda:
+            spans.count("h2d_bytes", spans.nbytes(rew))
+        return {_EMB_TAP: rew.to(x.device)}
+    rew = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+    if s is None:
+        rew.copy_(x32)
+    else:
+        rew.copy_(dh, non_blocking=True)
+        if cuda:
+            spans.count("h2d_bytes", spans.nbytes(dh))
+        rew.mul_(float(np.float32(s))).add_(x32)
+    return {_EMB_TAP: rew.to(dt)}
+
+
 def perturbed_batch_or_rewrites(batch: dict, base_trace: Trace,
                                 eps: float, seed: int = 0):
     """Returns (batch', rewrites').  Float model inputs are perturbed in the
@@ -137,17 +269,7 @@ def perturbed_batch_or_rewrites(batch: dict, base_trace: Trace,
         for i, k in enumerate(float_keys):
             b2[k] = perturb(to_numpy(batch[k]), eps, seed=seed + i)
         return b2, None
-    emb = "embedding/output"
-    if emb not in base_trace.activations:
-        raise ValueError("no float inputs and no embedding/output tap to perturb")
-    x = perturb(base_trace.activations[emb], eps, seed=seed)
-    tap = base_trace.activations.raw(emb)
-    if isinstance(tap, torch.Tensor):
-        x = torch.as_tensor(x)
-        if tap.device.type != "cpu":
-            spans.count("h2d_bytes", spans.nbytes(x))
-        x = x.to(tap.device)
-    return batch, {emb: x}
+    return batch, _tap_rewrites(base_trace, eps, seed)
 
 
 def estimate_thresholds(run_trace, batch: dict, eps: float,
@@ -161,7 +283,11 @@ def estimate_thresholds(run_trace, batch: dict, eps: float,
 
     A runner with ``.pair`` collects the base and perturbed runs together
     when the batch has float inputs; token inputs stay serial (the
-    embedding perturbation needs the base trace first).
+    embedding perturbation needs the base trace first), and the
+    perturbation's direction is drawn on a worker thread during the base
+    run where the tap's shape is known before it: from the runner's last
+    estimate on a batch of the same shapes, or from its
+    ``tap_shape(batch)``.
     """
     pair = getattr(run_trace, "pair", None)
     if pair is not None and _float_keys(batch):
@@ -171,10 +297,14 @@ def estimate_thresholds(run_trace, batch: dict, eps: float,
             t1, t2 = pair({k: np.stack([to_numpy(batch[k]), to_numpy(b2[k])])
                            for k in batch})
     else:
+        pre = _prefetch(run_trace, batch, seed)
         with spans.span("run"):
             t1 = run_trace(batch, None)
         with spans.span("perturb"):
-            b2, rew = perturbed_batch_or_rewrites(batch, t1, eps, seed)
+            b2, rew = (perturbed_batch_or_rewrites(batch, t1, eps, seed)
+                       if pre is None else
+                       (batch, _tap_rewrites(t1, eps, seed, pre)))
+        _remember(run_trace, batch, t1)
         with spans.span("run"):
             t2 = run_trace(b2, rew)
     with spans.span("sections"):
@@ -186,8 +316,6 @@ def estimate_thresholds(run_trace, batch: dict, eps: float,
 # ---------------------------------------------------------------------------
 # Build-once pair estimator (periodic re-estimation, paper §5 live)
 # ---------------------------------------------------------------------------
-
-_EMB_TAP = "embedding/output"
 
 
 def make_pair_estimator(loss_call, opt, params: dict, batch: dict, eps: float,

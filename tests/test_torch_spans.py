@@ -11,9 +11,16 @@
   spans change no record, threshold or verdict.
 * The perturbed embedding rewrite is the host perturbation of the tap,
   bit for bit, on the tap's device.
+* The estimate gives the same thresholds and rewrite whether the runner
+  gives the tap's shape (the direction is drawn during the base run:
+  ``estimate.perturb.prefetched``), gives a wrong one or gives none
+  (``redrawn``); with none, the runner's next estimate draws ahead from
+  the shape it saw.  Estimates in a row with other seeds each get their
+  own seed's perturbation, so the reused buffers carry nothing over.
 * On the card (``cuda`` marker) the nested spans and the allocator counts
-  are read from the device, and the perturbation's copies are counted
-  under ``estimate.perturb``.
+  are read from the device, the perturbation's copies are counted under
+  ``estimate.perturb``, and the rewrite is the host perturbation bit for
+  bit, drawn ahead or not.
 """
 import contextlib
 import dataclasses
@@ -37,11 +44,16 @@ from repro_torch.parallel.api import (ParallelConfig,  # noqa: E402
                                       make_candidate_runner)
 
 ESTIMATE = ("estimate.run", "estimate.perturb", "estimate.sections")
-TOKEN_KEYS = ("estimate", *ESTIMATE, "estimate.pack", "estimate.reduce",
+# the runner gives the tap's shape, so the direction is drawn during the
+# base run and the perturbation waits on it
+TOKEN_KEYS = ("estimate", *ESTIMATE, "estimate.perturb.wait",
+              "estimate.pack", "estimate.reduce",
               "candidate", "compare", "compare.pack", "compare.reduce")
 LOCALIZE_KEYS = ("localize", "localize.moves", "localize.rewrites",
                  "localize.run", "localize.pack", "localize.reduce")
 BUG = "tp_wrong_embedding_mask"
+EMB = "embedding/output"
+EPS = T.MACHINE_EPS["bfloat16"]
 
 
 def setup_module():
@@ -81,7 +93,9 @@ def failing(qwen):
 def test_token_model_check_reports_every_span(clean):
     assert clean.passed
     assert set(clean.seconds) == set(TOKEN_KEYS)
-    assert set(clean.counts) == {k + ".calls" for k in TOKEN_KEYS}
+    assert set(clean.counts) == {k + ".calls" for k in TOKEN_KEYS} | {
+        "estimate.perturb.prefetched"}
+    assert clean.counts["estimate.perturb.prefetched"] == 1
     assert clean.counts["estimate.run.calls"] == 2
     assert clean.counts["estimate.perturb.calls"] == 1
     assert clean.counts["compare.pack.calls"] == 1
@@ -211,6 +225,76 @@ def test_rewrite_is_the_host_perturbation_on_the_tap_device(qwen):
     np.testing.assert_array_equal(x.numpy(), want)
 
 
+def _recording(run, hint):
+    """A runner over ``run`` that keeps the rewrites each run was given and
+    gives the tap's shape as ``hint`` says."""
+    rewrites = []
+
+    def rec(batch, rw=None):
+        rewrites.append(rw)
+        return run(batch, rw)
+
+    if hint == "runner's":
+        rec.tap_shape = run.tap_shape
+    elif hint == "wrong":
+        rec.tap_shape = lambda batch: (1, 2, 3)
+    return rec, rewrites
+
+
+def _estimate(run, batch, seed):
+    with spans.check() as log, spans.span("estimate"):
+        thr, base = T.estimate_thresholds(run, batch, EPS, seed=seed)
+    return thr, base, log.counts
+
+
+@pytest.fixture(scope="module")
+def runner(qwen):
+    cfg, model, batch = qwen
+    return make_model_runner(model, AdamW(lr=1e-3), device="cpu"), batch
+
+
+@pytest.fixture(scope="module")
+def plain(runner):
+    run, batch = runner
+    return _estimate(run, batch, 5)
+
+
+@pytest.mark.parametrize("hint", ["runner's", "wrong", "none"])
+def test_estimate_is_the_same_with_or_without_the_tap_shape(runner, plain,
+                                                            hint):
+    run, batch = runner
+    rec, rewrites = _recording(run, hint)
+    thr, base, counts = _estimate(rec, batch, 5)
+    assert thr.per_tensor == plain[0].per_tensor
+    tap = base.activations.raw(EMB)
+    np.testing.assert_array_equal(rewrites[1][EMB].numpy(),
+                                  perturb(to_numpy(tap), EPS, seed=5))
+    ahead = hint == "runner's"
+    assert counts.get("estimate.perturb.prefetched", 0) == ahead
+    assert counts.get("estimate.perturb.redrawn", 0) == (not ahead)
+    assert ("estimate.perturb.wait.calls" in counts) == ahead
+    # the next estimate of the same runner draws ahead from what it saw
+    thr2, _, counts2 = _estimate(rec, batch, 5)
+    assert counts2["estimate.perturb.prefetched"] == 1
+    assert thr2.per_tensor == plain[0].per_tensor
+    np.testing.assert_array_equal(rewrites[3][EMB].numpy(),
+                                  rewrites[1][EMB].numpy())
+
+
+def test_estimates_in_a_row_get_their_own_seeds(runner, plain):
+    run, batch = runner
+    rec, rewrites = _recording(run, "runner's")
+    tap = plain[1].activations.raw(EMB)
+    for seed in (6, 7, 5):
+        thr, _, counts = _estimate(rec, batch, seed)
+        assert counts["estimate.perturb.prefetched"] == 1
+        np.testing.assert_array_equal(rewrites[-1][EMB].numpy(),
+                                      perturb(to_numpy(tap), EPS, seed))
+    assert not np.array_equal(rewrites[1][EMB].numpy(),
+                              rewrites[3][EMB].numpy())
+    assert thr.per_tensor == plain[0].per_tensor
+
+
 @pytest.mark.cuda
 def test_card_reads_the_device_clock_and_the_allocator():
     if not torch.cuda.is_available():
@@ -231,3 +315,28 @@ def test_card_reads_the_device_clock_and_the_allocator():
     assert "estimate.run.h2d_bytes" not in res.counts
     s = res.seconds
     assert sum(s[k] for k in ESTIMATE) <= s["estimate"] * 1.01
+
+
+@pytest.mark.cuda
+def test_card_rewrite_is_the_host_perturbation():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the pinned copies and the "
+                    "rewrite's float32 operations run there")
+    cfg, model, batch = _qwen("cuda")
+    run = make_model_runner(model, AdamW(lr=1e-3), device="cuda")
+    # the buffers of one estimate serve the next, each with its own seed's;
+    # a runner without the tap's shape draws ahead from its second estimate
+    hinted, bare = _recording(run, "runner's"), _recording(run, "none")
+    for (rec, rewrites), seed, key in ((hinted, 5, "prefetched"),
+                                       (bare, 6, "redrawn"),
+                                       (bare, 7, "prefetched")):
+        _, base, counts = _estimate(rec, batch, seed)
+        tap = base.activations.raw(EMB)
+        rew = rewrites[-1][EMB]
+        assert rew.device == tap.device and rew.dtype == torch.float32
+        np.testing.assert_array_equal(rew.cpu().numpy(),
+                                      perturb(to_numpy(tap), EPS, seed))
+        nbytes = tap.numel() * 4
+        assert counts["estimate.perturb.d2h_bytes"] == nbytes
+        assert counts["estimate.perturb.h2d_bytes"] == nbytes
+        assert counts[f"estimate.perturb.{key}"] == 1
