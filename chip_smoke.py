@@ -337,7 +337,8 @@ prints no result line):
 25e. dense_cli — ``python -m repro_torch.launch.serve --reduced`` for
              ``qwen3-32b`` and ``codeqwen1.5-7b`` must exit 0 and print
              their tokens per second, for ``hubert-xlarge`` exit non-zero
-             as encoder-only; ``list_configs()`` names all eleven configs.
+             as encoder-only; ``list_configs()`` names the reference's
+             eleven configs and ``moonlight-16b-a3b``.
 26a. train_main (26a-26c run last) — ``launch.train.main`` in this
              process for ``tinyllama-1.1b`` at its published width and
              depth (22 layers, d 2048, 32 heads, kv 4, d_ff 5632, vocab
@@ -3807,7 +3808,8 @@ def codeqwen_control(cfg, model, batch):
 def dense_cli():
     """25e: the serve CLI decodes reduced qwen3-32b and codeqwen1.5-7b
     and refuses reduced hubert-xlarge as encoder-only; ``list_configs``
-    names all eleven configs."""
+    names the reference's eleven configs and the port's
+    ``moonlight-16b-a3b``."""
     from repro_torch.configs.base import list_configs
     out = serve_cli(DENSE_SERVE)
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
@@ -3823,8 +3825,9 @@ def dense_cli():
     names = list_configs()
     want = {"gpt-paper", "tinyllama-1.1b", "mixtral-8x7b", "deepseek-v2-236b",
             "rwkv6-7b", "zamba2-7b", "qwen3-32b", "codeqwen1.5-7b",
-            "qwen1.5-110b", "llava-next-34b", "hubert-xlarge"}
-    if set(names) != want or len(names) != 11:
+            "qwen1.5-110b", "llava-next-34b", "hubert-xlarge",
+            "moonlight-16b-a3b"}
+    if set(names) != want or len(names) != 12:
         raise AssertionError(f"list_configs() gives {names}")
     log(f"list_configs(): {names}")
     return dict(out, refused=cli.returncode, configs=names)

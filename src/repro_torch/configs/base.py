@@ -3,14 +3,20 @@
 
 ``InputShape``, ``INPUT_SHAPES``, ``MoEConfig``, ``MLAConfig``,
 ``SSMConfig``, ``HybridConfig`` and ``ArchConfig`` are copied whole,
-with the reference's defaults.  The port keeps its parameters per layer
+with the reference's defaults.  ``MoEConfig`` adds port-only router
+fields after the reference's (``PORT_MOE_FIELDS``: the router's kind,
+where ``sigmoid`` is DeepSeek-V3's with its score-correction bias and
+sequence-wise balance loss, the routed scaling, and the held share of
+the experts); at their defaults a config
+routes as the reference does, and the reference's eleven configs keep
+them there.  The port keeps its parameters per layer
 and never scans, but it reads ``scan_layers`` and ``remat`` as the
 reference does: a segment the reference would scan (``scan_layers`` and
 more than one layer) runs each block under activation checkpointing when
 ``remat`` is set (``models/model.Model.apply_blocks``).  ``reduced()``
 gives the same CPU-smoke variant as the reference (both switches off),
-``supports_shape`` the same verdicts, and ``list_configs`` the same eleven
-names.
+``supports_shape`` the same verdicts, and ``list_configs`` the reference's
+eleven names plus the port-only ``moonlight-16b-a3b``.
 """
 from __future__ import annotations
 
@@ -45,6 +51,25 @@ class MoEConfig:
     n_dense_layers: int = 0    # leading layers that use a dense FFN instead of MoE
     router_aux_coef: float = 0.01
     capacity_factor: float = 2.0   # <= 0 means dropless (cap = n_tokens)
+    # port-only (PORT_MOE_FIELDS): the router's kind and a held share.
+    # softmax is the reference's router; sigmoid is DeepSeek-V3's: f32
+    # scores, a score-correction bias that selects and never weighs, and
+    # the balance loss per sequence, meaned
+    scoring: str = "softmax"
+    routed_scaling_factor: float = 1.0   # times the routed weights
+    n_held: int = 0                # experts this layer holds (0: all)
+    held_offset: int = 0           # the first expert it holds
+
+    @property
+    def held(self) -> int:
+        """The number of experts a layer holds and computes."""
+        return self.n_held or self.n_experts
+
+
+# MoEConfig's fields the reference's has not; at these defaults a layer
+# routes, weighs and computes as the reference's
+PORT_MOE_FIELDS = {"scoring": "softmax", "routed_scaling_factor": 1.0,
+                   "n_held": 0, "held_offset": 0}
 
 
 @dataclass(frozen=True)
@@ -152,6 +177,9 @@ class ArchConfig:
                 d_ff_dense=min(self.moe.d_ff_dense, 256) if self.moe.d_ff_dense else 0,
                 n_dense_layers=min(self.moe.n_dense_layers, 1),
                 capacity_factor=0.0,   # dropless: exact differential testing
+                # the router's kind carries over; the held share does not
+                **{k: getattr(self.moe, k) for k in PORT_MOE_FIELDS
+                   if k not in ("n_held", "held_offset")},
             )
         if self.mla is not None:
             kw["mla"] = MLAConfig(
@@ -199,8 +227,8 @@ def _ensure_loaded():
     # importing each per-arch module registers it
     from repro_torch.configs import (  # noqa: F401
         codeqwen15_7b, deepseek_v2_236b, gpt_paper, hubert_xlarge,
-        llava_next_34b, mixtral_8x7b, qwen15_110b, qwen3_32b, rwkv6_7b,
-        tinyllama_11b, zamba2_7b)
+        llava_next_34b, mixtral_8x7b, moonlight_16b_a3b, qwen15_110b,
+        qwen3_32b, rwkv6_7b, tinyllama_11b, zamba2_7b)
 
 
 def get_config(name: str) -> ArchConfig:

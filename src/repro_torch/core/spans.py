@@ -26,12 +26,21 @@ steps ``STEPS``, or the step's own name.  Clocks:
   span's start to the point it reaches its end, idle time included.  With
   CUDA not initialized the host clock times it.
 
+A span around a layer's forward can cover its backward too: ``x =
+sp.grad_end(x)`` on the work's input and ``y = sp.grad_start(y)`` on its
+output put identity autograd nodes there, which time the stretch from the
+gradient reaching ``y`` to its leaving through ``x`` under the same key,
+on the same clock (on CUDA from autograd's device thread, which sees no
+context variable: the nodes hold the log).
+
 The log writes out once, at the end of the check: ``seconds[key]`` (the
 durations of a repeated span add up) and ``counts``: ``<key>.calls`` for
 every span, what ``count`` adds under the innermost open span's key
-(``d2h_bytes``, ``h2d_bytes``), and for a span opened with ``alloc=True``
-on CUDA the deltas of the caching allocator's ``alloc_retries``,
-``device_allocs`` and ``device_frees``.
+(``d2h_bytes``, ``h2d_bytes``), what ``count_device`` adds there as
+device tensors (summed on the device, read once after the check's last
+wait), and for a span opened with ``alloc=True`` on CUDA the deltas of
+the caching allocator's ``alloc_retries``, ``device_allocs`` and
+``device_frees``.
 """
 from __future__ import annotations
 
@@ -62,6 +71,7 @@ class SpanLog:
         self.seconds: dict[str, float] = {}     # in the order spans open
         self.counts: dict[str, int] = {}
         self.timed: list = []       # (key, start event, end event)
+        self.device_counts: dict = {}   # key -> device tensor, summed
         # the current streams seen, by (card, raw stream): looking one up
         # costs twice what recording an event on it does
         self.streams: dict = {}
@@ -82,13 +92,59 @@ class SpanLog:
     def resolve(self) -> None:
         """Adds the device-timed spans' seconds.  No span's end event lies
         behind work the check did not already wait for, so waiting on the
-        last one waits only for the stream to reach it."""
-        if not self.timed:
-            return
-        self.timed[-1][2].synchronize()
-        for key, start, end in self.timed:
-            self.seconds[key] += start.elapsed_time(end) * 1e-3
-        self.timed = []
+        last one waits only for the stream to reach it.  Then adds the
+        device counts, read in one copy."""
+        if self.timed:
+            self.timed[-1][2].synchronize()
+            for key, start, end in self.timed:
+                self.seconds[key] += start.elapsed_time(end) * 1e-3
+            self.timed = []
+        if self.device_counts:
+            keys = list(self.device_counts)
+            vals = torch.stack([self.device_counts[k].reshape(()).long()
+                                for k in keys]).tolist()
+            for k, n in zip(keys, vals):
+                self.add(k, n)
+            self.device_counts = {}
+
+
+class _Edge(torch.autograd.Function):
+    """Identity whose backward calls ``mark`` when the gradient passes."""
+
+    @staticmethod
+    def forward(ctx, x, mark):
+        ctx.mark = mark
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        ctx.mark()
+        return g, None
+
+
+class _Backward:
+    """The backward of one span's work, timed under its key: opened when
+    the gradient reaches the work's output, closed when it has left
+    through its input."""
+    __slots__ = ("log", "key", "dev", "start", "t0")
+
+    def __init__(self, log: SpanLog, key: str):
+        self.log, self.key, self.start, self.t0 = log, key, None, None
+
+    def open(self):
+        if torch.cuda.is_initialized():
+            self.dev = torch.cuda.current_device()
+            self.start = self.log.event(self.dev)
+        else:
+            self.t0 = time.perf_counter()
+
+    def close(self):
+        log = self.log
+        if self.start is not None:
+            log.timed.append((self.key, self.start, log.event(self.dev)))
+        elif self.t0 is not None:
+            log.seconds[self.key] += time.perf_counter() - self.t0
+        self.start = self.t0 = None
 
 
 def active() -> SpanLog | None:
@@ -105,13 +161,14 @@ def _allocator() -> dict:
 
 class _Span:
     __slots__ = ("name", "alloc", "log", "key", "is_step", "rf", "t0",
-                 "dev", "start", "mem")
+                 "dev", "start", "mem", "bwd")
 
     def __init__(self, name: str, alloc: bool):
         self.name, self.alloc = name, alloc
 
     def __enter__(self):
         log = self.log = _LOG.get()
+        self.bwd = None
         if log is None:
             self.rf = _RecordFunctionFast(PREFIX + self.name)
             self.rf.__enter__()
@@ -153,6 +210,23 @@ class _Span:
         self.rf.__exit__(*exc)
         return False
 
+    def grad_end(self, x: torch.Tensor) -> torch.Tensor:
+        """``x``, the work's input, marked: the span's backward ends when
+        ``x``'s gradient is complete (nothing outside a check or without
+        a gradient)."""
+        if (self.log is None or not torch.is_grad_enabled()
+                or not x.requires_grad):
+            return x
+        self.bwd = _Backward(self.log, self.key)
+        return _Edge.apply(x, self.bwd.close)
+
+    def grad_start(self, y: torch.Tensor) -> torch.Tensor:
+        """``y``, the work's output, marked: the span's backward starts
+        when ``y``'s gradient arrives (after ``grad_end``)."""
+        if self.bwd is None or not y.requires_grad:
+            return y
+        return _Edge.apply(y, self.bwd.open)
+
 
 def span(name: str, alloc: bool = False) -> _Span:
     """A span of the check's work named ``name`` (see the module's
@@ -166,6 +240,17 @@ def count(name: str, n: int) -> None:
     log = _LOG.get()
     if log is not None and n and log.open:
         log.add(f"{log.open[-1]}.{name}", n)
+
+
+def count_device(name: str, x: torch.Tensor) -> None:
+    """Adds the device scalar ``x`` to ``<key>.<name>`` of the innermost
+    open span of the check in progress, on the device: read once, when
+    the check ends."""
+    log = _LOG.get()
+    if log is not None and log.open:
+        key = f"{log.open[-1]}.{name}"
+        prev = log.device_counts.get(key)
+        log.device_counts[key] = x if prev is None else prev + x
 
 
 def nbytes(x: torch.Tensor) -> int:

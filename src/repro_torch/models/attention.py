@@ -22,6 +22,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.core import spans
 from repro_torch.core.tap import ensure_ctx
 from repro_torch.models.layers import Linear, apply_rope, rmsnorm
 
@@ -277,20 +278,22 @@ class MLAttention(nn.Module):
 
     def forward(self, x, positions=None, ctx=None, use_kernel=False):
         """``mla_forward``, the training / prefill path: per-head K/V
-        materialized from the latent, attention in ``attention``."""
+        materialized from the latent, attention in ``attention``; under a
+        check its forward and backward are the span ``mla``."""
         if use_kernel:
             raise ValueError("MLA has no flash-kernel path (the reference's "
                              "mla_forward takes no use_kernel)")
         ctx = ensure_ctx(ctx)
-        x = ctx.tap("input", x)
-        B, S, _ = x.shape
-        if positions is None:
-            positions = torch.arange(S, device=x.device).expand(B, S)
-        q_nope, q_rope = self._q(x, positions)
-        q, k, v = self._heads(*self._ckv(x, positions), q_nope, q_rope)
-        o = attention(q, k, v, mode="causal")
-        o = ctx.tap("core_attn_out", o.reshape(B, S, -1))
-        return ctx.tap("output", self.linear_proj(o))
+        with spans.span("mla") as sp:
+            x = sp.grad_end(ctx.tap("input", x))
+            B, S, _ = x.shape
+            if positions is None:
+                positions = torch.arange(S, device=x.device).expand(B, S)
+            q_nope, q_rope = self._q(x, positions)
+            q, k, v = self._heads(*self._ckv(x, positions), q_nope, q_rope)
+            o = attention(q, k, v, mode="causal")
+            o = ctx.tap("core_attn_out", o.reshape(B, S, -1))
+            return sp.grad_start(ctx.tap("output", self.linear_proj(o)))
 
     # ---- decode (one token, latent cache) ----------------------------------
 

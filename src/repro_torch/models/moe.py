@@ -22,6 +22,23 @@ fixed axis.  Two runs on the card are bit-identical.
 
 Router logits are tapped (paper bug 6, router weights not synchronized,
 surfaces exactly there).
+
+The port-only ``scoring="sigmoid"`` (``configs/base.PORT_MOE_FIELDS``)
+gives DeepSeek-V3's router: f32 sigmoid scores over all experts, the top
+k of scores plus a score-correction bias (the bias selects and never
+weighs, so its gradient is zero), the chosen scores renormalized and
+scaled (``routed_scaling_factor``); and its sequence-wise balance loss
+(arXiv:2412.19437 eqs. 17-20): per sequence ``f_i = E / (k S) * #{t : i chosen at t}`` and ``P_i =
+mean_t s_it / sum_j s_jt``, ``coef * sum_i f_i P_i`` meaned over the
+sequences.  A layer may hold ``n_held`` of the experts from
+``held_offset``: it routes over all of them and computes its own
+(capacity is the whole layer's, ``expert_capacity``), the part one
+expert-parallel group of a larger deployment holds.
+
+Under a check (``core/spans``) the layer's forward and backward are the
+span ``moe``, and ``moe.rows_held`` / ``moe.dropped`` count on the device
+the routed assignments landing on held experts and those dropped there
+for capacity.
 """
 from __future__ import annotations
 
@@ -29,6 +46,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.core import spans
 from repro_torch.core.tap import ensure_ctx
 from repro_torch.models.layers import SwiGLUMLP, dense_init
 from repro_torch.sharding import rules
@@ -45,6 +63,45 @@ def router_topk(logits, top_k):
     return top_p, top_e
 
 
+def router_scores(logits, m):
+    """f32 scores over the experts: softmax, or DeepSeek-V3's sigmoid."""
+    if m.scoring == "sigmoid":
+        return torch.sigmoid(logits.float())
+    if m.scoring != "softmax":
+        raise ValueError(f"unknown router scoring {m.scoring!r}")
+    return torch.softmax(logits.float(), dim=-1)
+
+
+def select_topk(scores, m, bias=None):
+    """``(weights, experts)`` (..., k) from f32 ``scores`` (..., E): the k
+    largest of ``scores + bias`` (a stable descending sort: ties to the
+    lower expert), weighed by their own scores renormalized to sum to
+    one, times ``m.routed_scaling_factor``."""
+    key = scores if bias is None else scores + bias
+    top_e = torch.sort(key, dim=-1, descending=True,
+                       stable=True).indices[..., :m.top_k]
+    top_p = torch.gather(scores, -1, top_e)
+    top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
+    if m.routed_scaling_factor != 1.0:
+        top_p = top_p * m.routed_scaling_factor
+    return top_p, top_e
+
+
+def route(logits, m, bias=None):
+    """``(weights, experts, probs)``: the router's choice and the per-token
+    distribution the balance loss reads.  The reference's router
+    (``router_topk``, ``probs`` its softmax) unless the config sets a
+    port-only router field."""
+    if m.scoring == "softmax" and m.routed_scaling_factor == 1.0:
+        top_p, top_e = router_topk(logits, m.top_k)
+        return top_p, top_e, torch.softmax(logits, dim=-1)
+    scores = router_scores(logits, m)
+    top_p, top_e = select_topk(scores, m, bias)
+    probs = (scores if m.scoring == "softmax"
+             else scores / scores.sum(-1, keepdim=True))
+    return top_p, top_e, probs
+
+
 def load_balance_loss(probs_mean, assigned_frac, n_experts):
     """Switch-style aux loss: E * sum_e f_e * P_e (over the last dim)."""
     return n_experts * torch.sum(probs_mean * assigned_frac, dim=-1)
@@ -56,6 +113,29 @@ def expert_counts(top_e, n_experts: int):
     atomics)."""
     e = torch.arange(n_experts, device=top_e.device)
     return (top_e[..., None] == e).sum((-3, -2)).float()
+
+
+def seq_balance_loss(probs, top_e, n_experts: int, top_k: int):
+    """The sequence-wise balance loss without its coefficient: ``probs``
+    (..., B, S, E) and ``top_e`` (..., B, S, k) give ``(...,)``, the mean
+    over the B sequences of ``E * sum_i P_i * n_i / (S k)``."""
+    S = top_e.shape[-2]
+    counts = expert_counts(top_e, n_experts)              # (..., B, E)
+    return load_balance_loss(probs.mean(-2), counts / (S * top_k),
+                             n_experts).mean(-1)
+
+
+def held_counts(top_e, n_experts: int, cap: int, e0, n_local: int):
+    """``(rows, dropped)``, int64 device scalars: of ``top_e`` ``(R, T,
+    k)``'s assignments, those whose expert is among routing ``r``'s
+    ``n_local`` from ``e0[r]`` (or from ``e0``, an int, for all), and
+    those of them past the ``cap`` an expert keeps."""
+    counts = expert_counts(top_e, n_experts)              # (R, E)
+    idx = (torch.as_tensor(e0, device=counts.device).reshape(-1, 1)
+           + torch.arange(n_local, device=counts.device))
+    held = torch.gather(counts, 1, idx.expand(counts.shape[0], -1))
+    return (held.sum().long(),
+            torch.clamp(held - cap, min=0).sum().long())
 
 
 def expert_capacity(n_tokens: int, m) -> int:
@@ -183,10 +263,16 @@ def dispatch_combine(xt, top_p, top_e, experts: dict, n_experts: int,
 
 def moe_forward(p: dict, cfg, x, ctx=None):
     """x: (B,S,d).  Returns (y, aux_loss).  ``p``: ``{"router": (d, E) f32,
-    "experts": {"gate", "up", "down"}}`` (and ``"shared"``, a
-    ``SwiGLUMLP``, with shared experts)."""
-    ctx = ensure_ctx(ctx)
-    x = ctx.tap("input", x)
+    "experts": {"gate", "up", "down"}}`` (the held ``(n_held, ...)``
+    experts; ``"bias"``, the (E,) f32 score-correction bias, with the
+    sigmoid router; ``"shared"``, a ``SwiGLUMLP``, with shared
+    experts)."""
+    with spans.span("moe") as sp:
+        return _moe_forward(p, cfg, x, ensure_ctx(ctx), sp)
+
+
+def _moe_forward(p, cfg, x, ctx, sp):
+    x = sp.grad_end(ctx.tap("input", x))
     m = cfg.moe
     B, S, d = x.shape
     T = B * S
@@ -195,27 +281,38 @@ def moe_forward(p: dict, cfg, x, ctx=None):
     logits = xt.float() @ p["router"]                            # (T,E) fp32
     logits = ctx.tap("router_logits",
                      logits.reshape(B, S, -1)).reshape(T, -1)
-    top_p, top_e = router_topk(logits, m.top_k)
+    top_p, top_e, probs = route(logits, m, p.get("bias"))
 
-    # aux loss statistics (global)
-    probs = torch.softmax(logits, dim=-1)
-    aux = load_balance_loss(probs.mean(0),
-                            expert_counts(top_e, m.n_experts) / (T * m.top_k),
-                            m.n_experts) * m.router_aux_coef
+    if m.scoring == "sigmoid":
+        aux = seq_balance_loss(probs.reshape(B, S, -1),
+                               top_e.reshape(B, S, -1), m.n_experts,
+                               m.top_k) * m.router_aux_coef
+    else:
+        # aux loss statistics (global)
+        aux = load_balance_loss(
+            probs.mean(0), expert_counts(top_e, m.n_experts) / (T * m.top_k),
+            m.n_experts) * m.router_aux_coef
 
     # grouped capacity dispatch: G routings of T / G tokens each
     G = rules.dispatch_groups(T, m.n_experts)
     Tg = T // G
     cap = expert_capacity(Tg, m)
+    top_e = top_e.reshape(G, Tg, m.top_k)
+    if spans.active() is not None:
+        rows, dropped = held_counts(top_e, m.n_experts, cap, m.held_offset,
+                                    m.held)
+        spans.count_device("rows_held", rows)
+        spans.count_device("dropped", dropped)
     yt = dispatch_combine(xt.reshape(G, Tg, d),
-                          top_p.reshape(G, Tg, m.top_k),
-                          top_e.reshape(G, Tg, m.top_k), p["experts"],
-                          m.n_experts, cap)
+                          top_p.reshape(G, Tg, m.top_k), top_e,
+                          p["experts"], m.n_experts, cap, e0=(
+                              torch.full((G,), m.held_offset, device=x.device)
+                              if m.held_offset else None))
     y = yt.reshape(B, S, d).to(x.dtype)
     if m.n_shared:
         y = y + p["shared"](x)
     y = ctx.tap("output", y)
-    return y, aux
+    return sp.grad_start(y), aux
 
 
 class Experts(nn.Module):
@@ -234,11 +331,23 @@ class Experts(nn.Module):
         self.down = normal(out_scale or 0.02, n_experts, f, d)
 
 
+class ScoreCorrection(nn.Module):
+    """DeepSeek-V3's score-correction bias, ``b`` (E,) f32 of zeros: it
+    moves the router's choice and never its weights, so it takes no
+    gradient (and, named ``b``, no weight decay)."""
+
+    def __init__(self, n_experts):
+        super().__init__()
+        self.b = nn.Parameter(torch.zeros(n_experts, dtype=torch.float32))
+
+
 class MoE(nn.Module):
     """``moe_init`` / ``moe_forward``: an f32 router, the stacked experts
     and, with ``n_shared``, an always-on shared SwiGLU MLP.  Parameter
     names are the reference's (``router``, ``experts.{gate,up,down}``,
-    ``shared.{gate,up,down}.w``)."""
+    ``shared.{gate,up,down}.w``); with the sigmoid router, the port-only
+    ``score_correction.b``.  The experts are the ``n_held`` the layer
+    holds."""
 
     def __init__(self, gen, cfg, dtype, out_scale=None):
         super().__init__()
@@ -247,7 +356,9 @@ class MoE(nn.Module):
         d, f = cfg.d_model, m.d_ff_expert
         self.router = nn.Parameter(dense_init(gen, d, m.n_experts,
                                               torch.float32))
-        self.experts = Experts(gen, m.n_experts, d, f, dtype, out_scale)
+        if m.scoring == "sigmoid":
+            self.score_correction = ScoreCorrection(m.n_experts)
+        self.experts = Experts(gen, m.held, d, f, dtype, out_scale)
         if m.n_shared:
             self.shared = SwiGLUMLP(gen, d, m.n_shared * f, dtype,
                                     out_scale=out_scale)
@@ -256,6 +367,8 @@ class MoE(nn.Module):
         p = {"router": self.router,
              "experts": {n: getattr(self.experts, n)
                          for n in ("gate", "up", "down")}}
+        if self.cfg.moe.scoring == "sigmoid":
+            p["bias"] = self.score_correction.b
         if self.cfg.moe.n_shared:
             p["shared"] = self.shared
         return moe_forward(p, self.cfg, x, ctx=ctx)

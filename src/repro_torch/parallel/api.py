@@ -107,9 +107,10 @@ def candidate_features(cfg, pcfg: ParallelConfig) -> set:
 def param_dtypes(cfg):
     """``name -> dtype`` each parameter is kept in, as the reference's
     ``Model.init`` makes it: the config's param dtype, and f32 for the MoE
-    router (``moe_init``)."""
+    router (``moe_init``) and the port's score-correction bias."""
     dt = getattr(torch, cfg.param_dtype)
-    return lambda name: torch.float32 if name.endswith("mlp.router") else dt
+    return lambda name: (torch.float32 if name.endswith(
+        ("mlp.router", "mlp.score_correction.b")) else dt)
 
 
 def make_mesh(pcfg: ParallelConfig, device="cuda") -> Mesh:
@@ -139,6 +140,18 @@ def build_annotations(cfg, pcfg: ParallelConfig) -> Annotations:
         "layers.*.mlp.experts.up": {"tp_dim": 0},
         "layers.*.mlp.experts.down": {"tp_dim": 0},
     }
+    if cfg.attn == "mla":
+        # heads over tp: each head's columns are contiguous, so a tp shard
+        # of the columns is its heads' (no layout permutation); the latent
+        # and the rope key are replicated
+        for leaf in ("linear_q", "linear_uq", "linear_uk", "linear_uv"):
+            params[f"layers.*.self_attention.{leaf}.w"] = {"tp_dim": 1}
+    if cfg.moe is not None:
+        for leaf, dim in (("gate", 1), ("up", 1), ("down", 0)):
+            params[f"layers.*.mlp.shared.{leaf}.w"] = {"tp_dim": dim}
+        # an MoE arch's leading dense layers shard as any layer's
+        params.update({"dense_" + k: v for k, v in params.items()
+                       if k.startswith("layers.*.")})
     acts = {
         "embedding/output": seqspec,
         "layers.*.self_attention/input": seqspec,
@@ -164,9 +177,16 @@ def sizes_coords(pcfg: ParallelConfig):
 # Gradient reduction rules (the bug surface)
 # ---------------------------------------------------------------------------
 
+# MLA's replicated leaves, read by every head (``tp_mla_attention``)
+MLA_REPLICATED = ("linear_dkv.w", "kv_lora_norm", "linear_krope.w",
+                  "linear_dq.w", "q_lora_norm")
+
+
 def _needs_tp_reduce(name: str, pcfg: ParallelConfig) -> bool:
     if name.endswith("q_norm") or name.endswith("k_norm"):
         return pcfg.tp > 1          # head-sharded compute, always partial
+    if name.endswith(MLA_REPLICATED):
+        return pcfg.tp > 1          # each rank backprops its own heads
     if name.endswith("router"):
         # expert-parallel: each rank backprops only its local experts'
         # combine weights into the (replicated) router — the grads are
@@ -388,10 +408,10 @@ class _Plumbing:
     the (un)sharding with the zigzag (un)permute."""
 
     def __init__(self, cfg, pcfg: ParallelConfig, device):
-        if cfg.attn == "mla":
-            # the reference's distributed block is tp_gqa_attention only
+        if cfg.attn == "mla" and pcfg.cp > 1:
+            # tp_mla_attention runs the plain core over whole sequences
             raise ValueError(f"{cfg.name}: the distributed candidate has no "
-                             f"MLA attention (GQA only, as the reference's)")
+                             f"context-parallel MLA attention")
         if cfg.arch_type in ("vlm", "audio"):
             # the reference's parallel_gpt_loss embeds batch["tokens"] alone
             raise ValueError(f"{cfg.name}: the distributed candidate takes "

@@ -19,8 +19,9 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import spans
 from repro_torch.core.tap import ensure_ctx
-from repro_torch.models.attention import NEG_INF
+from repro_torch.models.attention import NEG_INF, attention
 from repro_torch.models.layers import apply_rope, rmsnorm
 
 AX_DP, AX_CP, AX_TP = "dp", "cp", "tp"
@@ -326,6 +327,68 @@ def tp_gqa_attention(mesh, p_local, cfg, x, q_pos, sp: bool,
         y = row_linear(mesh, pp, o, bugs=bugs,
                        bug_missing_id="attn_missing_row_psum")
     return ctx.tap("output", y)
+
+
+def tp_mla_attention(mesh, p_local, cfg, x, q_pos, sp: bool,
+                     bugs=frozenset(), ctx=None):
+    """Multi-head latent attention with its heads over tp (no cp): the
+    query's up-projection (``linear_q``, or ``linear_uq`` after the
+    replicated ``linear_dq`` and ``q_lora_norm``), ``linear_uk`` and
+    ``linear_uv`` column-parallel (each head's columns contiguous), the
+    latent (``linear_dkv``, ``kv_lora_norm``) and the shared rope key
+    (``linear_krope``) replicated, ``linear_proj`` row-parallel.  Each rank
+    backprops only its heads into the replicated leaves, so their
+    gradients are summed over tp (``api._needs_tp_reduce``).  The core is
+    the plain model's ``attention`` over the rank's heads (blockwise above
+    S 2048), each rank's batch one slice of its batch dimension.  Under a
+    check its forward and backward are the span ``mla``."""
+    ctx = ensure_ctx(ctx)
+    if axis_size(mesh, AX_CP) > 1:
+        raise ValueError("MLA attention has no context-parallel path")
+    with spans.span("mla") as span:
+        x = span.grad_end(ctx.tap("input", x))
+        m, tp = cfg.mla, axis_size(mesh, AX_TP)
+        H = cfg.n_heads // tp
+        dq = m.qk_nope_dim + m.qk_rope_dim
+        if sp:
+            x = sp_gather(mesh, x)
+        elif tp > 1:
+            x = g_copy(mesh, x)
+        R, B, S, _ = x.shape
+        pos_b = q_pos[:, None, :].expand(R, B, S)
+        if m.q_lora_rank:
+            cq = column_linear(mesh, p_local["linear_dq"], x)
+            cq = rmsnorm(mesh.rank_view(p_local["q_lora_norm"], cq.ndim), cq)
+            q = column_linear(mesh, p_local["linear_uq"], cq)
+        else:
+            q = column_linear(mesh, p_local["linear_q"], x)
+        q = q.reshape(R, B, S, H, dq)
+        q_nope, q_rope = torch.split(q, [m.qk_nope_dim, m.qk_rope_dim],
+                                     dim=-1)
+        q_rope = apply_rope(q_rope, pos_b, cfg.rope_theta)
+        ckv = column_linear(mesh, p_local["linear_dkv"], x)
+        ckv = rmsnorm(mesh.rank_view(p_local["kv_lora_norm"], ckv.ndim), ckv)
+        k_rope = apply_rope(column_linear(mesh, p_local["linear_krope"], x),
+                            pos_b, cfg.rope_theta)
+        k_nope = column_linear(mesh, p_local["linear_uk"], ckv).reshape(
+            R, B, S, H, m.qk_nope_dim)
+        v = column_linear(mesh, p_local["linear_uv"], ckv).reshape(
+            R, B, S, H, m.v_head_dim)
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        k = torch.cat([k_nope, k_rope[..., None, :].expand(
+            R, B, S, H, m.qk_rope_dim)], dim=-1)
+        o = attention(q.reshape(R * B, S, H, dq), k.reshape(R * B, S, H, dq),
+                      v.reshape(R * B, S, H, m.v_head_dim), mode="causal")
+        o = ctx.tap("core_attn_out", o.reshape(R, B, S, H * m.v_head_dim))
+        pp = p_local["linear_proj"]
+        if sp:
+            y = mesh.psum_scatter(rank_matmul(o, pp["w"].to(o.dtype)), AX_TP,
+                                  dim=1)
+            y = _add_bias(mesh, y, pp)
+        else:
+            y = row_linear(mesh, pp, o, bugs=bugs,
+                           bug_missing_id="attn_missing_row_psum")
+        return span.grad_start(ctx.tap("output", y))
 
 
 class _StaleWgradMatmul(torch.autograd.Function):

@@ -117,6 +117,7 @@ PARAM_RULES: list[tuple[str, tuple]] = [
     ("*experts.up", [(MODEL_AXIS, None, None), (None, None, MODEL_AXIS)]),
     ("*experts.down", [(MODEL_AXIS, None, None), (None, MODEL_AXIS, None)]),
     ("*mlp.router", (None, None)),
+    ("*score_correction.b", (None,)),     # the port's V3 router bias
     ("*shared.gate.w", (None, MODEL_AXIS)),
     ("*shared.up.w", (None, MODEL_AXIS)),
     ("*shared.down.w", (MODEL_AXIS, None)),

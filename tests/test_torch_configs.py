@@ -5,10 +5,13 @@ come from the reference and cross as numpy; on the CPU the port takes its
 plain versions.
 
 * For every config of the reference, the port's ``ArchConfig`` equals the
-  reference's on every field (``scan_layers``, ``remat`` and
-  ``remat_policy`` included), full and ``.reduced()``; both give
-  the same ``list_configs()``, ``INPUT_SHAPES``, ``is_decoder`` and
-  ``supports_shape`` over the 11 x 4 (config, shape) pairs.
+  reference's on every field of the reference's (``scan_layers``,
+  ``remat`` and ``remat_policy`` included), full and ``.reduced()``, and
+  each port-only ``MoEConfig`` field (``PORT_MOE_FIELDS``) sits at its
+  default there; the port's ``list_configs()`` is the reference's eleven
+  names and one port-only name, ``moonlight-16b-a3b``; both give the
+  same ``INPUT_SHAPES``, ``is_decoder`` and ``supports_shape`` over the
+  11 x 4 (config, shape) pairs.
 * The five configs ``DENSE_OPTIONS``, reduced: ``named_parameters()`` is
   ``flatten_named``'s names in its order, and the AdamW decay mask is the
   reference's; under the reference's f32 thresholds its ``compare_traces``
@@ -85,11 +88,16 @@ def test_config_equals_the_reference(name, reduced):
     fields = {f.name for f in dataclasses.fields(t)}
     assert fields == {f.name for f in dataclasses.fields(j)}
     for f in sorted(fields):
-        assert _value(getattr(t, f)) == _value(getattr(j, f)), f
+        tv = _value(getattr(t, f))
+        if f == "moe" and tv is not None:
+            assert {k: tv.pop(k) for k in tbase.PORT_MOE_FIELDS} \
+                == tbase.PORT_MOE_FIELDS
+        assert tv == _value(getattr(j, f)), f
 
 
 def test_registry_and_input_shapes_are_the_reference_ones():
-    assert tbase.list_configs() == jbase.list_configs() == sorted(ALL)
+    assert jbase.list_configs() == sorted(ALL)
+    assert tbase.list_configs() == sorted(ALL + ("moonlight-16b-a3b",))
     assert len(ALL) == 11
     assert {k: dataclasses.asdict(v) for k, v in tbase.INPUT_SHAPES.items()} \
         == {k: dataclasses.asdict(v) for k, v in jbase.INPUT_SHAPES.items()}

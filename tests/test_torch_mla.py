@@ -39,7 +39,7 @@ from repro.core.thresholds import MACHINE_EPS, estimate_thresholds  # noqa: E402
 from repro.models import attention as jattn  # noqa: E402
 from repro.models.model import build_plan as jax_build_plan  # noqa: E402
 from repro.optim.adamw import AdamW as JaxAdamW  # noqa: E402
-from repro_torch.configs.base import get_config  # noqa: E402
+from repro_torch.configs.base import PORT_MOE_FIELDS, get_config  # noqa: E402
 from repro_torch.core import harness  # noqa: E402
 from repro_torch.core.collector import SECTION_FIELDS  # noqa: E402
 from repro_torch.core.harness import make_model_runner, ttrace_check  # noqa: E402
@@ -74,7 +74,10 @@ def test_deepseek_config_equals_the_reference(reduced):
     if reduced:
         j, t = j.reduced(), t.reduced()
     assert dataclasses.asdict(t.mla) == dataclasses.asdict(j.mla)
-    assert dataclasses.asdict(t.moe) == dataclasses.asdict(j.moe)
+    # the port-only router fields sit at their defaults, the rest are equal
+    tm = dataclasses.asdict(t.moe)
+    assert {k: tm.pop(k) for k in PORT_MOE_FIELDS} == PORT_MOE_FIELDS
+    assert tm == dataclasses.asdict(j.moe)
     for f in dataclasses.fields(t):
         if f.name not in ("moe", "mla", "ssm"):
             assert getattr(t, f.name) == getattr(j, f.name), f.name
@@ -248,9 +251,13 @@ def test_localization_leaves_the_traces_whole(device, monkeypatch):
 
 def test_distributed_candidate_refuses_mla():
     """The reference's distributed block is ``tp_gqa_attention`` only; the
-    port refuses an MLA arch instead of failing inside the candidate."""
+    port's runs MLA with its heads over tp (``tp_mla_attention``) and
+    refuses it under context parallelism instead of failing inside the
+    candidate."""
     from repro_torch.parallel.api import ParallelConfig, make_candidate_runner
     _, tcfg = configs(NAME)
-    with pytest.raises(ValueError, match="no MLA attention"):
-        make_candidate_runner(tcfg, ParallelConfig(tp=2), torch_model(NAME),
+    with pytest.raises(ValueError, match="no context-parallel MLA"):
+        make_candidate_runner(tcfg, ParallelConfig(cp=2), torch_model(NAME),
                               device="cpu")
+    assert callable(make_candidate_runner(tcfg, ParallelConfig(tp=2),
+                                          torch_model(NAME), device="cpu"))
